@@ -1,0 +1,339 @@
+"""Dense linear algebra on limb matrices (..., n, m, S).
+
+The PyTorch counterpart of the JAX package's ``mp/linalg.py``, for the
+limb format on the route the accelerator takes there:
+
+- ``matmul`` sends large products (batched ones too) to the exact
+  integer CRT pipeline (``ops/mpmm.py``) and small ones to the plain
+  elementwise limb product with a tree sum;
+- ``cholesky``, ``solve_lower`` and ``solve_lower_t`` are panel-blocked
+  around the two limb kernels (``ops/limb_kernels.py``), with trailing
+  updates as CRT matmuls;
+- ``lower_inverse`` builds L^-1 from kernel-inverted diagonal blocks.
+
+Routing follows the tensor's device, not a global: CUDA tensors launch
+the kernels, CPU tensors run their plain versions, and both take the
+same blocked route.  Every function accepts leading batch axes.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import core
+from ..ops import limb_kernels as lk
+
+# Contraction chunk of the plain limb matmul: bounds its product tensor.
+_MATMUL_CHUNK = 128
+
+# Work thresholds (contraction * output elements) for the CRT route.
+_INT_BACKEND_MIN_WORK = 16 * 1024
+_INT_BACKEND_MIN_WORK_PER_BATCH = 2 * 1024
+
+_PANEL = 32
+
+# Rows up to which the blocked kernel route serves (the JAX package
+# falls back to its XLA loops beyond it; that path is not ported).
+_KERNEL_MAX_ROWS = 512
+
+
+def _int_backend_ok(a_shape, p: int) -> bool:
+    """The accelerator's routing rule for a @ b with a (..., m, n, S)
+    and p output columns.  ``a_shape`` excludes axes the JAX package
+    maps with vmap, so the rule sees the same shapes there and here."""
+    if len(a_shape) < 3:
+        return False
+    work = a_shape[-3] * a_shape[-2] * p
+    if len(a_shape) == 3:
+        return work >= _INT_BACKEND_MIN_WORK
+    batch = math.prod(a_shape[:-3])
+    return (work >= _INT_BACKEND_MIN_WORK_PER_BATCH
+            and batch * work >= _INT_BACKEND_MIN_WORK)
+
+
+def matmul(a, b, transpose_a: bool = False, transpose_b: bool = False,
+           vdims: int = 0):
+    """Limb matrix product a @ b: (..., m, n, S) x (..., n, p, S) ->
+    (..., m, p, S).  ``a is b`` with one side transposed is a SYRK.
+    ``vdims`` leading axes are per-block axes that the JAX package
+    vmaps over; they do not count as batch for the routing rule."""
+    syrk = a is b and transpose_a != transpose_b
+    if transpose_a:
+        a = a.transpose(-3, -2)
+    if transpose_b:
+        b = b.transpose(-3, -2)
+    n = a.shape[-2]
+    p = b.shape[-2]
+    assert b.shape[-3] == n, (a.shape, b.shape)
+    if _int_backend_ok(a.shape[vdims:], p):
+        from ..ops import mpmm
+
+        plan = mpmm.plan_for(core.precision_bits_of(a.shape[-1]), n)
+        at = a.transpose(-3, -2)
+        if syrk:
+            return mpmm.syrk_mp_batched(at, plan)
+        return mpmm.gemm_mp_batched(at, b, plan)
+    out = None
+    for start in range(0, n, _MATMUL_CHUNK):
+        stop = min(start + _MATMUL_CHUNK, n)
+        prod = core.mul(a[..., :, start:stop, None, :],
+                        b[..., None, start:stop, :, :])
+        part = core.sum_(prod, axis=-2)
+        out = part if out is None else core.add(out, part)
+    return out
+
+
+def matvec(a, x, transpose: bool = False, vdims: int = 0):
+    """(..., n, m, S) @ (..., m, S) -> (..., n, S), through ``matmul``
+    with a width-1 right operand."""
+    if transpose:
+        a = a.transpose(-3, -2)
+    xb = x[..., None, :].expand(a.shape[:-3] + x.shape[-2:-1] + (1,)
+                                + x.shape[-1:])
+    return matmul(a, xb, vdims=vdims)[..., 0, :]
+
+
+def transpose(a):
+    return a.transpose(-3, -2)
+
+
+def symmetrize(a):
+    """(A + A^T)/2."""
+    return core.mul_pow2(core.add(a, transpose(a)), 0.5)
+
+
+def diag(a):
+    return torch.diagonal(a, dim1=-3, dim2=-2).movedim(-1, -2)
+
+
+def add_diag(a, s):
+    """A + s*I for an MP scalar s (S,) or a float."""
+    n = a.shape[-3]
+    d = diag(a)
+    if torch.is_tensor(s) and s.dim() >= 1 and s.shape[-1] == a.shape[-1]:
+        new_d = core.add(d, s.expand(d.shape))
+    else:
+        new_d = core.add_f64(d, s)
+    out = a.clone()
+    idx = torch.arange(n, device=a.device)
+    out[..., idx, idx, :] = new_d
+    return out
+
+
+def trace(a):
+    """Sum of the diagonal (leading batch axes kept)."""
+    return core.sum_(diag(a), axis=-1)
+
+
+def frobenius(a, b):
+    """Tr(a^T b) over the trailing matrix axes (batch axes kept)."""
+    prod = core.mul(a, b)
+    flat = prod.reshape(prod.shape[:-3] + (-1, prod.shape[-1]))
+    return core.sum_(flat, axis=-1)
+
+
+# ---------------------------------------------------------------------------
+# Cholesky and triangular solves (blocked around the limb kernels)
+# ---------------------------------------------------------------------------
+
+def _eye(n: int, k: int, device):
+    out = torch.zeros((n, n, k), dtype=torch.float32, device=device)
+    idx = torch.arange(n, device=device)
+    out[idx, idx] = torch.as_tensor(core.one_np(k), device=device)
+    return out
+
+
+def _pad_identity(a, npad: int):
+    """Extend (..., n, n, S) to (..., n+npad, n+npad, S) with an
+    identity corner."""
+    n, k = a.shape[-3], a.shape[-1]
+    out = torch.zeros(a.shape[:-3] + (n + npad, n + npad, k),
+                      dtype=a.dtype, device=a.device)
+    out[..., :n, :n, :] = a
+    idx = torch.arange(n, n + npad, device=a.device)
+    out[..., idx, idx, :] = torch.as_tensor(core.one_np(k), device=a.device)
+    return out
+
+
+def _check_rows(n: int):
+    if n > _KERNEL_MAX_ROWS:
+        raise NotImplementedError(
+            f"limb Cholesky/solve with n={n} > {_KERNEL_MAX_ROWS}: the JAX "
+            "package's XLA fallback for large blocks is not ported yet")
+
+
+def _cholesky_limb_batched(a):
+    """Batched blocked limb Cholesky, a (BB, n, n, S): L11 by the
+    Cholesky kernel, L21 by the solve kernel on the transposed panel,
+    trailing update by a CRT SYRK."""
+    BB, n, k = a.shape[0], a.shape[-3], a.shape[-1]
+    nb = _PANEL
+    if n <= 2 * nb:
+        return lk.cholesky_unblocked_batched(a.contiguous())
+    npad = (-n) % nb
+    mat = _pad_identity(a, npad) if npad else a
+    N = n + npad
+    rows = torch.arange(N, device=a.device)
+    didx = torch.arange(nb, device=a.device)
+    for pi in range(N // nb):
+        j = pi * nb
+        l11 = lk.cholesky_unblocked_batched(
+            mat[:, j:j + nb, j:j + nb].contiguous())
+        inv_d = core.recip(l11[:, didx, didx, :])
+        C = mat[:, :, j:j + nb]
+        x = lk.solve_unblocked_batched(
+            l11, C.transpose(1, 2).contiguous(), inv_d)
+        below = (rows >= j + nb)[:, None, None]
+        slab = torch.where(below, x.transpose(1, 2), 0.0)
+        slab[:, j:j + nb] = l11
+        mat = mat.clone()
+        mat[:, :, j:j + nb] = slab
+        P = torch.where(below, slab, 0.0)
+        mat = core.add(mat, core.neg(matmul(P, P, transpose_b=True)))
+    lower = (rows[:, None] >= rows[None, :])[:, :, None]
+    out = torch.where(lower, mat, 0.0)
+    return out[:, :n, :n] if npad else out
+
+
+def cholesky(a):
+    """Lower Cholesky of symmetric positive-definite limb matrices
+    (..., n, n, S); a non-PD input gives NaNs."""
+    n = a.shape[-3]
+    _check_rows(n)
+    batch = a.shape[:-3]
+    out = _cholesky_limb_batched(a.reshape((-1,) + a.shape[-3:]))
+    return out.reshape(batch + out.shape[1:])
+
+
+def _solve_limb_batched(l, b, transpose: bool):
+    """Batched blocked triangular solve, l (BB, n, n, S), b (BB, n, m, S):
+    per panel one solve-kernel call plus one CRT matmul update."""
+    BB, n, k = l.shape[0], l.shape[-3], l.shape[-1]
+    m = b.shape[-2]
+    nb = _PANEL
+    didx = torch.arange(n, device=l.device)
+    inv_d = core.recip(l[:, didx, didx, :])
+    if n <= 2 * nb:
+        return lk.solve_unblocked_batched(l.contiguous(), b.contiguous(),
+                                          inv_d, transpose=transpose)
+    npad = (-n) % nb
+    if npad:
+        l = _pad_identity(l, npad)
+        b = torch.cat([b, torch.zeros((BB, npad, m, k), dtype=b.dtype,
+                                      device=b.device)], dim=1)
+        onev = torch.as_tensor(core.one_np(k), device=l.device)
+        inv_d = torch.cat([inv_d, onev.expand(BB, npad, k)], dim=1)
+    N = n + npad
+    rows = torch.arange(N, device=l.device)
+    npanels = N // nb
+    x = b
+    for t in range(npanels):
+        pi = npanels - 1 - t if transpose else t
+        j = pi * nb
+        l11 = l[:, j:j + nb, j:j + nb].contiguous()
+        xp = lk.solve_unblocked_batched(
+            l11, x[:, j:j + nb].contiguous(),
+            inv_d[:, j:j + nb].contiguous(), transpose=transpose)
+        x = x.clone()
+        x[:, j:j + nb] = xp
+        if transpose:
+            lrow = torch.where((rows < j)[None, :, None],
+                               l[:, j:j + nb], 0.0)
+            x = core.add(x, core.neg(matmul(lrow, xp, transpose_a=True)))
+        else:
+            lcol = torch.where((rows >= j + nb)[:, None, None],
+                               l[:, :, j:j + nb], 0.0)
+            x = core.add(x, core.neg(matmul(lcol, xp)))
+    return x[:, :n] if npad else x
+
+
+def _route_limb_solve(l, b, transpose: bool):
+    n = l.shape[-3]
+    _check_rows(n)
+    vec = b.dim() == l.dim() - 1
+    if vec:
+        b = b[..., None, :]
+    batch = l.shape[:-3]
+    b = b.expand(batch + b.shape[-3:])
+    out = _solve_limb_batched(l.reshape((-1,) + l.shape[-3:]),
+                              b.reshape((-1,) + b.shape[-3:]), transpose)
+    out = out.reshape(batch + out.shape[1:])
+    return out[..., 0, :] if vec else out
+
+
+def solve_lower(l, b):
+    """X = L^{-1} B, panel-blocked forward substitution."""
+    return _route_limb_solve(l, b, transpose=False)
+
+
+def solve_lower_t(l, b):
+    """X = L^{-T} B, panel-blocked backward substitution."""
+    return _route_limb_solve(l, b, transpose=True)
+
+
+def use_inverse_panels(l) -> bool:
+    """True when matrix-rhs triangular solves go through the explicit
+    blocked inverse, as on the accelerator route (always, for limbs)."""
+    return core.is_limb(l)
+
+
+def lower_inverse(l):
+    """T = L^{-1} for lower-triangular L (..., n, n, S), blocked:
+    diagonal blocks invert through the solve kernel against an identity
+    rhs; off-diagonal block rows are matmuls
+    T[i, :i] = -T[i][i] (L[i, :i] T[:i, :i])."""
+    batch = l.shape[:-3]
+    out = _lower_inverse_batched(l.reshape((-1,) + l.shape[-3:]))
+    return out.reshape(batch + out.shape[1:])
+
+
+def _lower_inverse_batched(l):
+    BB, n, k = l.shape[0], l.shape[-3], l.shape[-1]
+    nb = _PANEL
+    dev = l.device
+    if n <= 2 * nb:
+        didx = torch.arange(n, device=dev)
+        inv_d = core.recip(l[:, didx, didx, :])
+        eye = _eye(n, k, dev).expand(BB, n, n, k).contiguous()
+        return lk.solve_unblocked_batched(l.contiguous(), eye, inv_d)
+    npad = (-n) % nb
+    if npad:
+        l = _pad_identity(l, npad)
+    N = n + npad
+    nblk = N // nb
+    dblk = torch.stack([l[:, i * nb:(i + 1) * nb, i * nb:(i + 1) * nb]
+                        for i in range(nblk)], dim=1)
+    dflat = dblk.reshape(BB * nblk, nb, nb, k).contiguous()
+    didx = torch.arange(nb, device=dev)
+    inv_d = core.recip(dflat[:, didx, didx, :])
+    eye = _eye(nb, k, dev).expand(BB * nblk, nb, nb, k).contiguous()
+    tii = lk.solve_unblocked_batched(dflat, eye, inv_d).reshape(
+        BB, nblk, nb, nb, k)
+    T = torch.zeros((BB, N, N, k), dtype=l.dtype, device=dev)
+    for i in range(nblk):
+        T[:, i * nb:(i + 1) * nb, i * nb:(i + 1) * nb] = tii[:, i]
+    for i in range(1, nblk):
+        rowL = l[:, i * nb:(i + 1) * nb, :i * nb]
+        prod = matmul(rowL, T[:, :i * nb, :i * nb])
+        T[:, i * nb:(i + 1) * nb, :i * nb] = core.neg(matmul(tii[:, i],
+                                                             prod))
+    return T[:, :n, :n] if npad else T
+
+
+def cholesky_solve(l, b):
+    """A^{-1} B given A = L L^T."""
+    return solve_lower_t(l, solve_lower(l, b))
+
+
+def lower_inverse_congruence(l, a):
+    """L^{-1} A L^{-T} for symmetric A."""
+    z = solve_lower(l, a)
+    return transpose(solve_lower(l, transpose(z)))
+
+
+def cholesky_condition_estimate(l):
+    """(max diag / min diag)^2 over the trailing matrix (batch kept)."""
+    d = core.fst(diag(l))
+    return (d.amax(dim=-1) / d.amin(dim=-1)) ** 2

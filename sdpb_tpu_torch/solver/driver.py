@@ -1,0 +1,208 @@
+"""Host-side solver loop: termination logic and iteration records.
+
+Mirrors `SDP_Solver::run` (`src/sdp_solve/SDP_Solver/run/run.cxx:184-482`)
+and `compute_feasible_and_termination.cxx` for the single-device
+bucketed problem.  Each iteration runs the residue phase, reads the
+error scalars back to the host, decides termination with mpmath at full
+precision, then runs the step phase.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import time
+
+import mpmath
+import numpy as np
+import torch
+
+from ..mp import decimal as mpdec
+from . import bucket_iteration
+from .data import BucketedProblem, BucketedState, initial_bucketed_state
+from .params import SolverParams
+
+
+class NonFiniteIterateError(RuntimeError):
+    """The iterate went NaN/Inf: a Cholesky of a matrix that was not
+    positive definite (precision exhausted) or an overflow."""
+
+
+class TerminateReason(enum.Enum):
+    PrimalDualOptimal = "found primal-dual optimal solution"
+    PrimalFeasible = "found primal feasible solution"
+    DualFeasible = "found dual feasible solution"
+    PrimalFeasibleJumpDetected = "primal feasible jump detected"
+    DualFeasibleJumpDetected = "dual feasible jump detected"
+    MaxIterationsExceeded = "maxIterations exceeded"
+    MaxRuntimeExceeded = "maxRuntime exceeded"
+    MaxComplementarityExceeded = "maxComplementarity exceeded"
+    PrimalStepTooSmall = "primal step too small"
+    DualStepTooSmall = "dual step too small"
+    SIGTERM_Received = "SIGTERM received"
+
+
+@dataclasses.dataclass
+class IterationRecord:
+    iteration: int
+    mu: str
+    primal_objective: str
+    dual_objective: str
+    duality_gap: str
+    primal_error_P: str
+    primal_error_p: str
+    dual_error: str
+    R_error: str
+    primal_step: float
+    dual_step: float
+    beta_corrector: str
+    iter_time: float
+    q_cond: float = 0.0
+    max_block_cond: float = 0.0
+    max_block_cond_name: str = ""
+
+
+@dataclasses.dataclass
+class SolveResult:
+    reason: TerminateReason
+    state: BucketedState
+    iterations: list
+    primal_objective: str
+    dual_objective: str
+    duality_gap: str
+    primal_error: str
+    dual_error: str
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _mpf_of(words, prec) -> mpmath.mpf:
+    ctx = mpmath.mp.clone()
+    ctx.prec = prec + 64
+    return mpdec.to_mpf(_np(words), ctx)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def solve(problem: BucketedProblem, params: SolverParams,
+          state: BucketedState | None = None, verbose: bool = False,
+          iteration_hook=None, timers=None) -> SolveResult:
+    """Run the interior-point loop to termination.  ``timers``
+    (utils.timers.Timers) records run.iter_<n>.{residues,step}."""
+    it_mod = bucket_iteration
+    if state is None:
+        state = initial_bucketed_state(
+            problem, float(params.initial_matrix_scale_primal),
+            float(params.initial_matrix_scale_dual))
+    thr = params.thresholds_mpf()
+    prec = params.precision
+    start_time = time.time()
+    records = []
+    reason = TerminateReason.MaxIterationsExceeded
+    primal_step = dual_step = 0.0
+    dec = lambda w: mpdec.to_decimal(_np(w))
+    if timers is None:
+        from ..utils.timers import Timers
+
+        timers = Timers()
+    dev = problem.device
+
+    it = 0
+    while True:
+        it += 1
+        t0 = time.time()
+        with timers.scoped(f"run.iter_{it}.residues"):
+            res = it_mod.compute_residues(problem, state)
+            _sync(dev)
+
+        p_err_P = _mpf_of(res.primal_error_P, prec)
+        p_err_p = _mpf_of(res.primal_error_p, prec)
+        primal_error = max(p_err_P, p_err_p)
+        dual_error = _mpf_of(res.dual_error, prec)
+        duality_gap = _mpf_of(res.duality_gap, prec)
+        if any(mpmath.isnan(v) or mpmath.isinf(v)
+               for v in (primal_error, dual_error, duality_gap)):
+            raise NonFiniteIterateError(
+                f"non-finite residues at iteration {it}: a Cholesky "
+                "input was not positive definite or a value overflowed "
+                "- try increasing --precision")
+
+        is_primal_feasible = primal_error < thr["primal_error"]
+        is_dual_feasible = dual_error < thr["dual_error"]
+        feasible = is_primal_feasible and is_dual_feasible
+        is_optimal = duality_gap < thr["duality_gap"]
+
+        terminate = True
+        if feasible and is_optimal:
+            reason = TerminateReason.PrimalDualOptimal
+        elif is_dual_feasible and params.find_dual_feasible:
+            reason = TerminateReason.DualFeasible
+        elif is_primal_feasible and params.find_primal_feasible:
+            reason = TerminateReason.PrimalFeasible
+        elif dual_step == 1.0 and params.detect_dual_feasible_jump:
+            reason = TerminateReason.DualFeasibleJumpDetected
+        elif primal_step == 1.0 and params.detect_primal_feasible_jump:
+            reason = TerminateReason.PrimalFeasibleJumpDetected
+        elif it > params.max_iterations:
+            reason = TerminateReason.MaxIterationsExceeded
+        elif time.time() - start_time >= params.max_runtime:
+            reason = TerminateReason.MaxRuntimeExceeded
+        elif it > 1 and primal_step < float(thr["min_primal_step"]):
+            reason = TerminateReason.PrimalStepTooSmall
+        elif it > 1 and dual_step < float(thr["min_dual_step"]):
+            reason = TerminateReason.DualStepTooSmall
+        else:
+            terminate = False
+        if terminate:
+            break
+
+        with timers.scoped(f"run.iter_{it}.step"):
+            state, info = it_mod.compute_step(problem, state, res, params,
+                                              feasible, timers=timers)
+            _sync(dev)
+
+        if bool(_np(info.terminate_max_complementarity)):
+            reason = TerminateReason.MaxComplementarityExceeded
+            break
+        primal_step = float(_np(info.primal_step))
+        dual_step = float(_np(info.dual_step))
+        if not (np.isfinite(primal_step) and np.isfinite(dual_step)):
+            raise NonFiniteIterateError(
+                f"non-finite step length at iteration {it}: the Schur "
+                "or Q Cholesky failed (not positive definite) - try "
+                "increasing --precision")
+
+        rec = IterationRecord(
+            iteration=it, mu=dec(info.mu),
+            primal_objective=dec(res.primal_objective),
+            dual_objective=dec(res.dual_objective),
+            duality_gap=dec(res.duality_gap),
+            primal_error_P=dec(res.primal_error_P),
+            primal_error_p=dec(res.primal_error_p),
+            dual_error=dec(res.dual_error), R_error=dec(info.R_error),
+            primal_step=primal_step, dual_step=dual_step,
+            beta_corrector=dec(info.beta_corrector),
+            iter_time=time.time() - t0, q_cond=info.q_cond,
+            max_block_cond=info.max_block_cond,
+            max_block_cond_name=info.max_block_cond_name)
+        records.append(rec)
+        if iteration_hook is not None:
+            iteration_hook(rec, state)
+        if verbose:
+            print(f"it {it:3d} mu={float(mpmath.mpf(rec.mu)):.3e} "
+                  f"gap={float(mpmath.mpf(rec.duality_gap)):.3e} "
+                  f"steps=({primal_step:.6f},{dual_step:.6f}) "
+                  f"t={rec.iter_time:.3f}s", flush=True)
+
+    return SolveResult(
+        reason=reason, state=state, iterations=records,
+        primal_objective=dec(res.primal_objective),
+        dual_objective=dec(res.dual_objective),
+        duality_gap=dec(res.duality_gap),
+        primal_error=mpmath.nstr(primal_error, 40),
+        dual_error=mpmath.nstr(dual_error, 40))

@@ -1,0 +1,80 @@
+"""The port stands alone: no file of sdpb_tpu_torch/ and neither
+chip_smoke.py imports jax or sdpb_tpu, and its entry points run on the
+CUDA device unless told otherwise, never falling back to the CPU."""
+
+import ast
+import importlib.util
+import pathlib
+
+import pytest
+import torch
+
+from sdpb_tpu_torch import device as devmod
+from sdpb_tpu_torch.apps import sdpb as app
+
+from torch_port_util import one_torch_thread  # noqa: F401,E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "sdpb_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+SDP_1D = ROOT / "sdpb_tpu_torch" / "data" / "quickstart_1d_sdp"
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_package_imports(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "sdpb_tpu"), (path, name)
+    assert "libsdpb_tpu" not in path.read_text(), path
+
+
+def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        devmod.resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        app.main(["-s", str(SDP_1D), "--noFinalCheckpoint"])
+    assert devmod.resolve_device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert devmod.resolve_device(None) == torch.device("cuda", 0)
+
+
+def test_missing_options_exit_nonzero(tmp_path, capsys):
+    base = ["-s", str(SDP_1D), "-o", str(tmp_path / "out")]
+    assert app.main(base, device="cpu") == 2                 # checkpoint
+    assert "solver/checkpoint.py" in capsys.readouterr().err
+    assert app.main(base + ["--noFinalCheckpoint", "--device", "cpu"]) == 2
+    assert "mp/core.py" in capsys.readouterr().err
+    assert app.main(base + ["--noFinalCheckpoint", "-i", str(tmp_path)],
+                    device="cpu") == 2
+    assert app.main(base + ["--noFinalCheckpoint", "--checkpointInterval",
+                            "10"], device="cpu") == 2
+
+
+def test_chip_smoke_needs_a_card(monkeypatch, capsys):
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert mod.main([]) == 1
+    assert '"ok"' not in capsys.readouterr().out
+
+
+def test_kernel_wrappers_refuse_other_devices():
+    from sdpb_tpu_torch.ops import limb_kernels as lk
+
+    a = torch.zeros(1, 2, 2, 5, device="meta")
+    with pytest.raises(ValueError):
+        lk.cholesky_unblocked_batched(a)
