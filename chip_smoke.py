@@ -6,9 +6,14 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each printing its name and elapsed seconds:
   1. environment: card name and power limit, torch/CUDA versions, mpmath
-  2. build: both limb kernels with nvcc (register/spill lines printed)
-  3. kernels against their plain PyTorch versions at the full-width
-     shapes (S = 47, 400 bits), with CUDA-event times
+  2. build: the limb kernels with nvcc, one process per unit (the
+     -Xptxas -v lines printed, and registers, stack frame and spills
+     per factorization kernel)
+  3. kernels against their plain PyTorch versions, bit for bit: the
+     factorization kernels at the full-width shapes (S = 47, 400 bits)
+     and at S = 26 (--precision 212), S = 116 (--precision 1024),
+     n = 64 and n = 7; the elementwise kernels at S = 47; CUDA-event
+     times
   4. the 1d quickstart SDP end to end through the sdpb CLI entry point
      at the stock contract (--precision 212): PrimalDualOptimal and the
      known objective
@@ -112,8 +117,37 @@ def phase_build():
           f"{Path(info['library']).name}", flush=True)
     for line in info["ptxas"]:
         print(f"  ptxas: {line}", flush=True)
+    for name, res in _ptxas_resources(info["ptxas"]).items():
+        print(f"  {name}: {json.dumps(res)}", flush=True)
     lk._lib()
     phase("2 build", t)
+
+
+def _ptxas_resources(lines):
+    """Registers, stack frame and spill bytes per factorization kernel
+    instantiation, read from the -Xptxas -v lines."""
+    out, cur = {}, None
+    for line in lines:
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            k = re.search(r"(chol_warp|solve_warp)_kernelILi(\d+)ELi(\d+)E",
+                          m.group(1))
+            cur = f"{k.group(1)}_kernel<{k.group(2)},{k.group(3)}>" \
+                if k else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(cur, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(cur, {})["registers"] = int(m.group(1))
+    return out
 
 
 def _mul_flops(L):
@@ -145,75 +179,98 @@ def _solve_ops(bb, n, m, L):
     return bb * ((n * m + upd) * _mul_flops(L) + upd * L)
 
 
-def phase_kernels(dev, S=47):
-    """Each kernel against its plain version at the full-width shapes."""
+def same_bits(got, want):
+    """Equal limbs, with NaN in the same places."""
+    import torch
+
+    return bool(torch.equal(got.nan_to_num(0.0, 1.0, -1.0),
+                            want.nan_to_num(0.0, 1.0, -1.0))
+                and torch.equal(got.isnan(), want.isnan()))
+
+
+# Phase 3 shapes: (batch, n, S) for the Cholesky and (batch, n, m, S)
+# for the solve.  The first three of each are the full-width problem's
+# (S = 47); the rest cover S = 26 (--precision 212), S = 116
+# (--precision 1024), n = 64 (the largest unblocked n) and an odd n.
+CHOL_SHAPES = ((48, 32, 47), (16, 48, 47), (1, 32, 47), (4, 32, 26),
+               (2, 32, 116), (2, 64, 47), (1, 64, 116), (8, 7, 47))
+SOLVE_SHAPES = ((272, 32, 32, 47), (48, 32, 96, 47), (1, 32, 384, 47),
+                (4, 32, 16, 26), (2, 32, 24, 116), (2, 64, 40, 47),
+                (1, 64, 8, 116), (5, 7, 9, 47))
+FULL_WIDTH = 3
+
+
+def phase_kernels(dev):
+    """Each kernel against its plain version, bit for bit."""
     t = time.time()
     import torch
 
     from sdpb_tpu_torch.mp import limb
     from sdpb_tpu_torch.ops import limb_kernels as lk
 
-    L = S - 1
     rng = np.random.default_rng(0)
-    tol = 2.0 ** (-limb.B * (S - 3))
     rows = {}
-    for bb, n in ((48, 32), (16, 48), (1, 32)):
+    for idx, (bb, n, S) in enumerate(CHOL_SHAPES):
+        L = S - 1
         a = spd_limbs(rng, bb, n, S, dev, scale=1e20)
         got = lk.cholesky_unblocked_batched(a)
         want = lk.cholesky_unblocked_plain(a)
         torch.cuda.synchronize()
-        err, rel = abs_rel_err(got, want)
-        exact = bool(torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0)))
-        if not rel <= tol:
-            raise AssertionError(f"cholesky ({bb},{n},{n}) rel err {rel}")
-        ms = cuda_ms(lambda: lk.cholesky_unblocked_batched(a), 3)
+        if not same_bits(got, want):
+            raise AssertionError(f"cholesky ({bb},{n},{n},{S}) differs from "
+                                 f"its plain version (abs, rel err "
+                                 f"{abs_rel_err(got, want)})")
+        ms = cuda_ms(lambda: lk.cholesky_unblocked_batched(a), 5)
         plain_ms = cuda_ms(lambda: lk.cholesky_unblocked_plain(a), 1)
-        nbytes = 2 * a.numel() * 4
-        ops = _chol_ops(bb, n, L, limb.newton_steps(L))
-        print(f"cholesky ({bb},{n},{n},{S}): rel err {rel:.3e} "
-              f"bit-exact {exact}  kernel {ms:.3f} ms  plain "
-              f"{plain_ms:.3f} ms", flush=True)
+        print(f"cholesky ({bb},{n},{n},{S}): bit-exact  kernel {ms:.3f} ms  "
+              f"plain {plain_ms:.3f} ms", flush=True)
         rows.setdefault("cholesky_unblocked_batched", []).append(
-            dict(shape=[bb, n, n, S], err=err, ms=ms, plain_ms=plain_ms,
-                 bytes=nbytes, ops=ops))
-    bad = spd_limbs(rng, 2, 32, S, dev)
-    bad[1] = -bad[1]
-    poisoned = lk.cholesky_unblocked_batched(bad)
-    torch.cuda.synchronize()
-    if not (poisoned[1].isnan().any() and
-            torch.isfinite(poisoned[0]).all()):
-        raise AssertionError("non-PD Cholesky did not poison to NaN")
-    print("cholesky non-PD input poisons to NaN", flush=True)
+            dict(shape=[bb, n, n, S], err=0.0, ms=ms, plain_ms=plain_ms,
+                 bytes=2 * a.numel() * 4, main=idx < FULL_WIDTH,
+                 ops=_chol_ops(bb, n, L, limb.newton_steps(L))))
+    for S in (47, 116):
+        bad = spd_limbs(rng, 2, 32, S, dev)
+        bad[1] = -bad[1]
+        poisoned = lk.cholesky_unblocked_batched(bad)
+        torch.cuda.synchronize()
+        if not (poisoned[1].isnan().any() and
+                torch.isfinite(poisoned[0]).all() and
+                same_bits(poisoned, lk.cholesky_unblocked_plain(bad))):
+            raise AssertionError(f"non-PD Cholesky (S={S}) did not poison "
+                                 f"to NaN as its plain version does")
+    print("cholesky non-PD input poisons to NaN as the plain version does",
+          flush=True)
 
-    for bb, m in ((272, 32), (48, 96), (1, 384)):
-        n = 32
+    for idx, (bb, n, m, S) in enumerate(SOLVE_SHAPES):
+        L = S - 1
         lfac = lk.cholesky_unblocked_batched(spd_limbs(rng, bb, n, S, dev))
-        idx = torch.arange(n, device=dev)
-        inv_d = limb.recip(lfac[:, idx, idx, :]).contiguous()
+        diag = torch.arange(n, device=dev)
+        inv_d = limb.recip(lfac[:, diag, diag, :]).contiguous()
         g = rng.standard_normal((bb, n, m))
         b = torch.from_numpy(limb.from_words_np(g[..., None], S)).to(dev)
+        geo = lk.solve_geometry(bb, n, m, S)
         for transpose in (False, True):
             got = lk.solve_unblocked_batched(lfac, b, inv_d, transpose)
             want = lk.solve_unblocked_plain(lfac, b, inv_d, transpose)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
+            if not same_bits(got, want):
                 raise AssertionError(
-                    f"solve ({bb},{n},{m}) transpose={transpose} differs "
-                    f"from its plain version (abs, rel err "
+                    f"solve ({bb},{n},{m},{S}) transpose={transpose} "
+                    f"differs from its plain version (abs, rel err "
                     f"{abs_rel_err(got, want)})")
             ms = cuda_ms(lambda: lk.solve_unblocked_batched(
-                lfac, b, inv_d, transpose), 3)
+                lfac, b, inv_d, transpose), 5)
             plain_ms = cuda_ms(lambda: lk.solve_unblocked_plain(
                 lfac, b, inv_d, transpose), 1)
-            nbytes = (lfac.numel() + 2 * b.numel() + inv_d.numel()) * 4
-            ops = _solve_ops(bb, n, m, L)
-            print(f"solve ({bb},{n},{n})x{m} T={int(transpose)}: "
-                  f"bit-exact  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms",
-                  flush=True)
+            print(f"solve ({bb},{n},{n})x{m} S={S} T={int(transpose)}: "
+                  f"bit-exact  tile {geo['tm']} blocks {geo['blocks']}  "
+                  f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms", flush=True)
             rows.setdefault("solve_unblocked_batched", []).append(
                 dict(shape=[bb, n, m, S, int(transpose)], err=0.0, ms=ms,
-                     plain_ms=plain_ms, bytes=nbytes, ops=ops))
-    rows.update(_elementwise_checks(dev, rng, S))
+                     plain_ms=plain_ms, main=idx < FULL_WIDTH,
+                     bytes=(lfac.numel() + 2 * b.numel() + inv_d.numel()) * 4,
+                     ops=_solve_ops(bb, n, m, L)))
+    rows.update(_elementwise_checks(dev, rng, 47))
     phase("3 kernels vs plain", t)
     return rows
 
@@ -262,10 +319,7 @@ def _elementwise_checks(dev, rng, S, n=48 * 32 * 32):
         got = kern(a, b)
         want = plain(a, b)
         torch.cuda.synchronize()
-        same = torch.equal(got.nan_to_num(0.0, 1.0, -1.0),
-                           want.nan_to_num(0.0, 1.0, -1.0)) and torch.equal(
-            got.isnan(), want.isnan())
-        if not same:
+        if not same_bits(got, want):
             bad = (got.nan_to_num(0.0) != want.nan_to_num(0.0)).any(-1)
             i = int(bad.nonzero()[0, 0])
             raise AssertionError(f"{name} differs from its plain version "
@@ -276,7 +330,8 @@ def _elementwise_checks(dev, rng, S, n=48 * 32 * 32):
         print(f"{name} ({n},{S}): bit-exact  kernel {ms:.3f} ms  plain "
               f"{plain_ms:.3f} ms", flush=True)
         rows[name] = [dict(shape=[n, S], err=0.0, ms=ms, plain_ms=plain_ms,
-                           bytes=3 * n * S * 4, ops=n * per_op[name])]
+                           bytes=3 * n * S * 4, ops=n * per_op[name],
+                           main=True)]
     return rows
 
 
@@ -404,9 +459,13 @@ def phase_full(dev, iterations=2):
 # Device kernels by what launched them: the port's own CUDA kernels, the
 # integer elementwise glue (CRT digits and residues, limb exponents),
 # library matrix products, and the rest (float glue, copies).
+LIMB_KERNELS = (
+    ("cholesky_unblocked_batched", r"\(anonymous namespace\)::chol_warp_kernel<"),
+    ("solve_unblocked_batched", r"\(anonymous namespace\)::solve_warp_kernel<"),
+    ("limb_elementwise", r"\(anonymous namespace\)::elementwise_kernel\("),
+)
 PROFILE_CLASSES = (
-    ("limb_kernels",
-     r"^\(anonymous namespace\)::(chol|solve|elementwise)_kernel\("),
+    ("limb_kernels", "|".join(pat for _, pat in LIMB_KERNELS)),
     ("matmul", r"gemm|xmma|cutlass"),
     ("integer_glue", r"<(int|long)\b|\b(int|long)>|\((int|long)\)#"),
 )
@@ -428,24 +487,31 @@ def _profile_iteration(problem, state, s_per_it):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         driver.solve(problem, params, state=state)
         torch.cuda.synchronize()
-    device_ms = {}
+    device_ms, calls = {}, {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
             continue
         us = ev.self_device_time_total if hasattr(
             ev, "self_device_time_total") else ev.self_cuda_time_total
         device_ms[ev.key] = us / 1e3
+        calls[ev.key] = ev.count
     total = sum(device_ms.values())
     classes = {}
     for key, ms in device_ms.items():
         cls = next((c for c, pat in PROFILE_CLASSES if re.search(pat, key)),
                    "other")
         classes[cls] = classes.get(cls, 0.0) + ms
+    kernels = {}
+    for name, pat in LIMB_KERNELS:
+        keys = [k for k in device_ms if re.search(pat, k)]
+        kernels[name] = {"device_ms": sum(device_ms[k] for k in keys),
+                         "launches": sum(calls[k] for k in keys)}
     top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]
     print("full width profiled iteration: " + json.dumps({
         "device_ms_total": total,
         "busy_share": total / 1e3 / s_per_it if total else "not measured",
         "device_ms_by_class": classes,
+        "limb_kernels": kernels,
         "top_device_ms": {k[:120]: v for k, v in top}}), flush=True)
 
 
@@ -457,18 +523,19 @@ def kernel_json(rows, launches):
         "limb_mul": "sdpb_tpu/mp/limb.py:532",
         "limb_div": "sdpb_tpu/mp/limb.py:670",
     }
-    sources = {"limb_add": "sdpb_tpu_torch/csrc/limb_elementwise.cu",
+    sources = {"cholesky_unblocked_batched": "sdpb_tpu_torch/csrc/limb_chol.cu",
+               "solve_unblocked_batched": "sdpb_tpu_torch/csrc/limb_solve.cu",
+               "limb_add": "sdpb_tpu_torch/csrc/limb_elementwise.cu",
                "limb_mul": "sdpb_tpu_torch/csrc/limb_elementwise.cu",
                "limb_div": "sdpb_tpu_torch/csrc/limb_elementwise.cu"}
     out = []
     for name, recs in rows.items():
-        rec = max(recs, key=lambda r: r["ops"])
+        rec = max((r for r in recs if r["main"]), key=lambda r: r["ops"])
         t_bytes = rec["bytes"] / PEAK_BYTES_PER_S * 1e3
         t_ops = rec["ops"] / PEAK_F32_PER_S * 1e3
         out.append({
             "name": name, "route": "cuda",
-            "source": sources.get(name,
-                                  "sdpb_tpu_torch/csrc/limb_kernels.cu"),
+            "source": sources[name],
             "replaces": meta[name], "launches": launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in recs),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],

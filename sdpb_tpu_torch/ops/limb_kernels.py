@@ -6,12 +6,16 @@ the two Pallas TPU kernels of the JAX package
 (``sdpb_tpu/ops/limb_kernels.py``); ``limb_add``, ``limb_mul`` and
 ``limb_div`` run one MP operation per launch where the JAX package
 leaves the elementwise limb arithmetic to XLA fusions.  The CUDA sources
-are ``csrc/limb.cuh`` (the limb arithmetic as device functions),
-``csrc/limb_kernels.cu`` (the two factorization kernels) and
-``csrc/limb_elementwise.cu``, each kernel with a plain ``extern "C"``
-launcher.  They are compiled with ``nvcc`` into a shared library at
-first use (``csrc/build/``, rebuilt when a source changes) and called
-through ``ctypes``; no PyTorch header is involved.
+are ``csrc/limb.cuh`` (the limb arithmetic per thread),
+``csrc/limb_warp.cuh`` (the same arithmetic with one value per warp),
+``csrc/limb_chol.cu`` and ``csrc/limb_solve.cu`` (the two factorization
+kernels, one MP operation per warp) and ``csrc/limb_elementwise.cu``,
+each kernel with a plain ``extern "C"`` launcher.  Each unit is compiled with ``nvcc`` at
+first use, all at once, and linked into one shared library
+(``csrc/build/``, rebuilt when a source changes) called through
+``ctypes``; no PyTorch header is involved.  ``chol_geometry`` and
+``solve_geometry`` choose each launch's warps, tile width and shared
+memory.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device; it never falls back from one
@@ -34,14 +38,28 @@ from ..mp import limb
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("limb.cuh", "limb_kernels.cu", "limb_elementwise.cu")
-UNITS = ("limb_kernels.cu", "limb_elementwise.cu")
+SOURCES = ("limb.cuh", "limb_warp.cuh", "limb_chol.cu", "limb_solve.cu",
+           "limb_elementwise.cu")
+UNITS = ("limb_chol.cu", "limb_solve.cu", "limb_elementwise.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
 # Largest slot count S the kernels hold per element (csrc/limb.cuh
 # kMaxSlots); --precision 1024 needs S = 116.
 MAX_SLOTS = 128
+
+# Launch geometry of the factorization kernels (csrc/limb_chol.cu,
+# csrc/limb_solve.cu): the card's SMs, the shared memory one block may
+# use, the floats of one warp's scratch row past its 32 R slots
+# (limb_warp.cuh kPad), and warps per block by the registers R a lane
+# spends on one limb value (the (R, warps) pairs the launchers are
+# built for).
+SMS = 132
+SMEM_LIMIT = 232_448
+ROW_PAD = 4
+CHOL_WARPS = {1: 32, 2: 16, 3: 16, 4: 8, 5: 8}
+SOLVE_WARPS = 8
+SOLVE_MAX_TILE = 4
 
 LAUNCHES = {"cholesky_unblocked_batched": 0, "solve_unblocked_batched": 0,
             "limb_add": 0, "limb_mul": 0, "limb_div": 0}
@@ -65,8 +83,9 @@ def _nvcc() -> str:
 
 def build(force: bool = False) -> dict:
     """Compile the kernels into ``csrc/build/`` unless a library built
-    from the same sources exists.  Returns the build record (seconds,
-    the ``-Xptxas -v`` resource lines, the library path)."""
+    from the same sources exists: one ``nvcc -c`` per unit, all started
+    together, then one link.  Returns the build record (seconds, the
+    ``-Xptxas -v`` resource lines, the library path)."""
     digest = hashlib.sha256()
     for name in SOURCES:
         digest.update((CSRC / name).read_bytes())
@@ -77,22 +96,37 @@ def build(force: bool = False) -> dict:
         return {"library": str(lib), "seconds": 0.0, "ptxas": [],
                 "cached": True}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *(str(CSRC / unit) for unit in UNITS)]
+    pid = os.getpid()
     t0 = time.time()
+    objs, procs = [], []
+    for unit in UNITS:
+        obj = BUILD_DIR / f"{Path(unit).stem}_{tag}.{pid}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+               str(CSRC / unit)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    lines = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) building the limb kernels:"
+                f"\n{' '.join(cmd)}\n{out}\n{err}")
+        lines += [ln.strip() for ln in err.splitlines()
+                  if re.search(r"registers|spill|Compiling entry|stack frame",
+                               ln)]
+    tmp = lib.with_suffix(f".{pid}.tmp")
+    cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.time() - t0
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building the limb kernels:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib)
-    lines = [ln.strip() for ln in proc.stderr.splitlines()
-             if re.search(r"registers|spill|Compiling entry|stack frame",
-                          ln)]
-    return {"library": str(lib), "seconds": seconds, "ptxas": lines,
-            "cached": False}
+    return {"library": str(lib), "seconds": time.time() - t0,
+            "ptxas": lines, "cached": False}
 
 
 def _lib():
@@ -102,17 +136,31 @@ def _lib():
         BUILD_INFO.update(info)
         lib = ctypes.CDLL(info["library"])
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.chol_unblocked_launch.argtypes = [vp, vp, ci, ci, ci, ci, vp]
+        lib.chol_unblocked_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci,
+                                              vp]
         lib.chol_unblocked_launch.restype = ci
         lib.solve_unblocked_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci,
-                                               ci, ci, ci, vp]
+                                               ci, ci, ci, ci, vp]
         lib.solve_unblocked_launch.restype = ci
         lib.limb_elementwise_launch.argtypes = [vp, vp, vp, ctypes.c_long,
                                                 ci, ci, vp]
         lib.limb_elementwise_launch.restype = ci
         lib.limb_max_slots.restype = ci
+        lib.limb_chol_smem_bytes.argtypes = [ci, ci, ci]
+        lib.limb_chol_smem_bytes.restype = ci
+        lib.limb_solve_smem_bytes.argtypes = [ci, ci, ci, ci]
+        lib.limb_solve_smem_bytes.restype = ci
         if lib.limb_max_slots() != MAX_SLOTS:
             raise RuntimeError("limb kernel library disagrees on MAX_SLOTS")
+        for n, S in ((7, 26), (32, 47), (64, 116), (64, MAX_SLOTS)):
+            chol = chol_geometry(n, S)
+            solve = solve_geometry(1, n, 40, S)
+            if (lib.limb_chol_smem_bytes(n, S, chol["warps"]) != chol["smem"]
+                    or lib.limb_solve_smem_bytes(n, solve["tm"], S,
+                                                 solve["warps"])
+                    != solve["smem"]):
+                raise RuntimeError("limb kernel library disagrees on the "
+                                   "shared-memory layout")
         _LIB = lib
     return _LIB
 
@@ -136,6 +184,51 @@ def _check_slots(name, S):
         raise ValueError(
             f"{name}: S={S} slots exceeds the CUDA kernels' limit of "
             f"{MAX_SLOTS} (precision {limb.precision_bits(MAX_SLOTS)} bits)")
+
+
+def value_regs(S: int) -> int:
+    """Registers per lane for one limb value spread over a warp: S slots
+    and the L + 4 slots of a product (csrc/limb_warp.cuh regs_for)."""
+    _check_slots("value_regs", S)
+    return -(-(S + 3) // 32)
+
+
+def _scratch_floats(warps: int, R: int) -> int:
+    """The warps' scratch rows (csrc/limb_warp.cuh scratch_floats): a row
+    of 32 R + ROW_PAD floats and a padded row of 64 R per warp."""
+    return warps * (32 * R + ROW_PAD + 64 * R)
+
+
+def chol_geometry(n: int, S: int) -> dict:
+    """Warps and dynamic shared memory (bytes) of one Cholesky block:
+    the scaled column (n S floats), the pivot's sqrt and rsqrt (2 S) and
+    the warps' scratch rows."""
+    R = value_regs(S)
+    warps = CHOL_WARPS[R]
+    smem = 4 * (n * S + 2 * S + _scratch_floats(warps, R))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"cholesky n={n}, S={S} needs {smem} bytes of "
+                         f"shared memory (limit {SMEM_LIMIT})")
+    return {"warps": warps, "smem": smem}
+
+
+def solve_geometry(BB: int, n: int, m: int, S: int) -> dict:
+    """Tile width, warps, grid and dynamic shared memory (bytes) of the
+    solve kernel: tiles of SOLVE_MAX_TILE columns, halved while the grid
+    has fewer than two blocks per SM; x_i of the tile (tm S floats), L's
+    column i (n S) and the warps' scratch rows.  (Measured on the card,
+    PERF.md: more, narrower tiles beat fewer wide ones at every
+    main-path shape.)"""
+    R = value_regs(S)
+    tm = max(1, min(m, SOLVE_MAX_TILE))
+    while tm > 1 and BB * -(-m // tm) < 2 * SMS:
+        tm //= 2
+    blocks = BB * -(-m // tm)
+    smem = 4 * (tm * S + n * S + _scratch_floats(SOLVE_WARPS, R))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"solve n={n}, S={S} needs {smem} bytes of "
+                         f"shared memory (limit {SMEM_LIMIT})")
+    return {"tm": tm, "warps": SOLVE_WARPS, "blocks": blocks, "smem": smem}
 
 
 def _status(name, err):
@@ -170,10 +263,6 @@ def solve_unblocked_plain(l, b, inv_d, transpose: bool = False):
     return out
 
 
-def _solve_tile(n: int, m: int) -> int:
-    return max(1, min(m, 32, 256 // n))
-
-
 def solve_unblocked_batched(l, b, inv_d, transpose: bool = False):
     """X = L^{-1} B (or L^{-T} B) for a batch of small lower-triangular
     limb systems:
@@ -196,13 +285,13 @@ def solve_unblocked_batched(l, b, inv_d, transpose: bool = False):
     for t in (l, b, inv_d):
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
+    geo = solve_geometry(BB, n, m, S)
     out = torch.empty_like(b)
     if out.numel() == 0:
         return out
-    tm = _solve_tile(n, m)
     err = _lib().solve_unblocked_launch(
         l.data_ptr(), b.data_ptr(), inv_d.data_ptr(), out.data_ptr(),
-        BB, n, m, S, tm, int(transpose),
+        BB, n, m, S, geo["tm"], int(transpose), geo["warps"],
         torch.cuda.current_stream(b.device).cuda_stream)
     _status(name, err)
     LAUNCHES[name] += 1
@@ -245,8 +334,7 @@ def cholesky_unblocked_batched(a):
         return cholesky_unblocked_plain(a)
     BB, n, _, S = a.shape
     _check_slots(name, S)
-    if (n + 2) * S * 4 > 227 * 1024:
-        raise ValueError(f"{name}: n={n} column does not fit shared memory")
+    geo = chol_geometry(n, S)
     if not a.is_contiguous():
         raise ValueError(f"{name}: input must be contiguous")
     out = torch.empty_like(a)
@@ -254,7 +342,7 @@ def cholesky_unblocked_batched(a):
         return out
     err = _lib().chol_unblocked_launch(
         a.data_ptr(), out.data_ptr(), BB, n, S,
-        limb.newton_steps(S - 1),
+        limb.newton_steps(S - 1), geo["warps"],
         torch.cuda.current_stream(a.device).cuda_stream)
     _status(name, err)
     LAUNCHES[name] += 1

@@ -123,3 +123,66 @@ def test_elementwise_wrappers_on_cpu_are_the_plain_versions():
           tl.sqrt_rsqrt_plain(tl.abs_(a))[1].numpy())
     _same(tl.recip(a).numpy(), tl.recip_plain(a).numpy())
     assert sum(tk.LAUNCHES.values()) == 0
+
+
+# Launch geometry of the factorization kernels (no card needed): the
+# Python side picks warps, tile width and shared memory; the CUDA
+# launchers are built for the (registers, warps) pairs listed here.
+CHOL_BUILT = {(1, 32), (2, 16), (3, 16), (4, 8), (5, 8)}
+SOLVE_BUILT = {(1, 8), (2, 8), (3, 8), (4, 8), (5, 8)}
+MAIN_PATH_CHOL = [(48, 32, 47), (16, 48, 47), (1, 32, 47), (1, 8, 26),
+                  (4, 32, 26)]
+MAIN_PATH_SOLVE = [(272, 32, 32, 47), (48, 32, 96, 47), (1, 32, 384, 47),
+                   (48, 32, 32, 47), (16, 48, 48, 47), (1, 8, 1, 26),
+                   (1, 5, 5, 26)]
+
+
+@pytest.mark.parametrize("S", [4, 26, 29, 30, 47, 61, 62, 93, 94, 116, 125,
+                               126, 128])
+def test_geometry_fits_shared_memory_for_every_n(S):
+    R = tk.value_regs(S)
+    assert 32 * R >= S + 3 > 32 * (R - 1)
+    for n in range(1, 65):
+        chol = tk.chol_geometry(n, S)
+        assert chol["smem"] <= tk.SMEM_LIMIT == 232_448
+        assert (R, chol["warps"]) in CHOL_BUILT
+        for BB, m in ((1, 1), (1, n), (3, 40), (272, 32), (1, 384)):
+            solve = tk.solve_geometry(BB, n, m, S)
+            assert solve["smem"] <= tk.SMEM_LIMIT
+            assert (R, solve["warps"]) in SOLVE_BUILT
+            assert 1 <= solve["tm"] <= min(m, tk.SOLVE_MAX_TILE)
+            assert solve["blocks"] == BB * -(-m // solve["tm"])
+
+
+@pytest.mark.parametrize("bb,n,S", MAIN_PATH_CHOL)
+def test_cholesky_geometry_at_main_path_shapes(bb, n, S):
+    geo = tk.chol_geometry(n, S)
+    R = tk.value_regs(S)
+    # scaled column, the pivot's sqrt and rsqrt, the warps' scratch rows
+    want = 4 * (n * S + 2 * S + geo["warps"] * (96 * R + tk.ROW_PAD))
+    assert geo["smem"] == want <= tk.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("bb,n,m,S", MAIN_PATH_SOLVE)
+def test_solve_geometry_at_main_path_shapes(bb, n, m, S):
+    geo = tk.solve_geometry(bb, n, m, S)
+    assert geo["smem"] <= tk.SMEM_LIMIT
+    # the grid covers every SM once wherever there are enough columns
+    assert geo["blocks"] >= min(tk.SMS, bb * m)
+
+
+def test_q_panel_solve_covers_the_card():
+    """The (1, 32, 32) x 384 panel solve of the blocked Q Cholesky ran on
+    48 blocks in the first port; it must fill the card's 132 SMs."""
+    geo = tk.solve_geometry(1, 32, 384, 47)
+    assert geo["blocks"] >= 132
+
+
+def test_geometry_refuses_more_than_max_slots():
+    S = tk.MAX_SLOTS + 1
+    for call in (lambda: tk.value_regs(S), lambda: tk.chol_geometry(8, S),
+                 lambda: tk.solve_geometry(1, 8, 4, S)):
+        with pytest.raises(ValueError):
+            call()
+    tk.chol_geometry(64, tk.MAX_SLOTS)
+    tk.solve_geometry(1, 64, 32, tk.MAX_SLOTS)
