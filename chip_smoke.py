@@ -6,19 +6,34 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each printing its name and elapsed seconds:
   1. environment: card name and power limit, torch/CUDA versions, mpmath
-  2. build: the limb kernels with nvcc, one process per unit (the
-     -Xptxas -v lines printed, and registers, stack frame and spills
-     per factorization kernel)
+  2. build: the limb kernels of every slot class (128, 256 and 512
+     slots) with nvcc, one process per object, all started together
+     (registers, stack frame and spills per factorization kernel; a
+     spill fails the phase)
   3. kernels against their plain PyTorch versions, bit for bit: the
      factorization kernels at the full-width shapes (S = 47, 400 bits)
      and at S = 26 (--precision 212), S = 116 (--precision 1024),
-     n = 64 and n = 7; the elementwise kernels at S = 47; CUDA-event
-     times
+     n = 64 and n = 7, and at S = 130, 230 and 458 (--precision 1152,
+     2048 and 4096); the elementwise kernels at S = 47, 130, 230 and
+     458; CUDA-event times
   4. the 1d quickstart SDP end to end through the sdpb CLI entry point
      at the stock contract (--precision 212): PrimalDualOptimal and the
      known objective
   5. the full-width synthetic problem (bench.py's build_problem: 48+16
-     blocks, Schur 96/240, N = 384, 400 bits) for 2 solver iterations
+     blocks, Schur 96/240, N = 384, 400 bits) for 1 solver iteration,
+     its peak memory beside the memory estimate, and one more iteration
+     under torch.profiler
+  6. the front end and the CLI as a user runs them, each a process of
+     its own: the quickstart PMP written with the port's pmp_writer and
+     compiled by the port's pmp2sdp (byte for byte the committed SDP),
+     then solved by the port's sdpb with checkpoints on: SIGTERM after
+     20 iterations (exit 143 and a checkpoint), the same command again
+     (restart, PrimalDualOptimal, block_timings, a final checkpoint);
+     then 5 iterations at --precision 2048 (S = 230)
+  7. above 512 rows: the synthetic problem with N = 1024 for 1
+     iteration (the Q Cholesky on 32 panels), its time, the Q
+     Cholesky's time, peak memory against the memory estimate (no more
+     than 10% below the peak, here and in phase 5)
 
 The line before the last is one JSON object with a record per kernel;
 the last line is {"ok": true, "device": {...}}.  Any failure raises and
@@ -30,7 +45,10 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -109,17 +127,24 @@ def phase_env() -> str:
 
 
 def phase_build():
+    """Every slot class's library, all units of all classes compiled at
+    once; registers, stack and spills per factorization kernel, and a
+    failure if one of them spills."""
     t = time.time()
     from sdpb_tpu_torch.ops import limb_kernels as lk
 
-    info = lk.build(force=True)
-    print(f"nvcc build {info['seconds']:.1f} s -> "
-          f"{Path(info['library']).name}", flush=True)
-    for line in info["ptxas"]:
-        print(f"  ptxas: {line}", flush=True)
-    for name, res in _ptxas_resources(info["ptxas"]).items():
-        print(f"  {name}: {json.dumps(res)}", flush=True)
-    lk._lib()
+    infos = lk.build(force=True)
+    spills = []
+    for cap, info in infos.items():
+        print(f"class {cap}: nvcc build {info['seconds']:.1f} s -> "
+              f"{Path(info['library']).name}", flush=True)
+        for name, res in _ptxas_resources(info["ptxas"]).items():
+            print(f"  {name}: {json.dumps(res)}", flush=True)
+            if res.get("spill_stores", 0) or res.get("spill_loads", 0):
+                spills.append((cap, name, res))
+        lk._lib(cap)
+    if spills:
+        raise AssertionError(f"factorization kernels spill: {spills}")
     phase("2 build", t)
 
 
@@ -191,13 +216,41 @@ def same_bits(got, want):
 # Phase 3 shapes: (batch, n, S) for the Cholesky and (batch, n, m, S)
 # for the solve.  The first three of each are the full-width problem's
 # (S = 47); the rest cover S = 26 (--precision 212), S = 116
-# (--precision 1024), n = 64 (the largest unblocked n) and an odd n.
+# (--precision 1024), n = 64 (the largest unblocked n), an odd n, and
+# the higher slot classes: S = 130, 230 and 458 (--precision 1152, 2048
+# and 4096).
+HIGH_SLOTS = (130, 230, 458)
 CHOL_SHAPES = ((48, 32, 47), (16, 48, 47), (1, 32, 47), (4, 32, 26),
-               (2, 32, 116), (2, 64, 47), (1, 64, 116), (8, 7, 47))
+               (2, 32, 116), (2, 64, 47), (1, 64, 116), (8, 7, 47)) + tuple(
+    shape for S in HIGH_SLOTS for shape in ((2, 32, S), (1, 64, S)))
 SOLVE_SHAPES = ((272, 32, 32, 47), (48, 32, 96, 47), (1, 32, 384, 47),
                 (4, 32, 16, 26), (2, 32, 24, 116), (2, 64, 40, 47),
-                (1, 64, 8, 116), (5, 7, 9, 47))
+                (1, 64, 8, 116), (5, 7, 9, 47)) + tuple(
+    (2, 32, 24, S) for S in HIGH_SLOTS)
 FULL_WIDTH = 3
+
+
+def bound_ms(nbytes, ops):
+    """(least time in ms, what bounds it): the bytes moved over the
+    memory rate or the float operations over the float32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed_once(fn):
+    """(result, ms) of one call, timed with CUDA events: for the plain
+    versions, whose single call is long and whose result is the
+    reference."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def phase_kernels(dev):
@@ -214,21 +267,21 @@ def phase_kernels(dev):
         L = S - 1
         a = spd_limbs(rng, bb, n, S, dev, scale=1e20)
         got = lk.cholesky_unblocked_batched(a)
-        want = lk.cholesky_unblocked_plain(a)
-        torch.cuda.synchronize()
+        want, plain_ms = timed_once(lambda: lk.cholesky_unblocked_plain(a))
         if not same_bits(got, want):
             raise AssertionError(f"cholesky ({bb},{n},{n},{S}) differs from "
                                  f"its plain version (abs, rel err "
                                  f"{abs_rel_err(got, want)})")
         ms = cuda_ms(lambda: lk.cholesky_unblocked_batched(a), 5)
-        plain_ms = cuda_ms(lambda: lk.cholesky_unblocked_plain(a), 1)
+        nbytes, ops = 2 * a.numel() * 4, _chol_ops(bb, n, L,
+                                                   limb.newton_steps(L))
         print(f"cholesky ({bb},{n},{n},{S}): bit-exact  kernel {ms:.3f} ms  "
-              f"plain {plain_ms:.3f} ms", flush=True)
+              f"plain {plain_ms:.3f} ms  bound %.5f ms (%s)"
+              % bound_ms(nbytes, ops), flush=True)
         rows.setdefault("cholesky_unblocked_batched", []).append(
             dict(shape=[bb, n, n, S], err=0.0, ms=ms, plain_ms=plain_ms,
-                 bytes=2 * a.numel() * 4, main=idx < FULL_WIDTH,
-                 ops=_chol_ops(bb, n, L, limb.newton_steps(L))))
-    for S in (47, 116):
+                 bytes=nbytes, main=idx < FULL_WIDTH, ops=ops))
+    for S in (47, 116, 458):
         bad = spd_limbs(rng, 2, 32, S, dev)
         bad[1] = -bad[1]
         poisoned = lk.cholesky_unblocked_batched(bad)
@@ -251,8 +304,8 @@ def phase_kernels(dev):
         geo = lk.solve_geometry(bb, n, m, S)
         for transpose in (False, True):
             got = lk.solve_unblocked_batched(lfac, b, inv_d, transpose)
-            want = lk.solve_unblocked_plain(lfac, b, inv_d, transpose)
-            torch.cuda.synchronize()
+            want, plain_ms = timed_once(lambda: lk.solve_unblocked_plain(
+                lfac, b, inv_d, transpose))
             if not same_bits(got, want):
                 raise AssertionError(
                     f"solve ({bb},{n},{m},{S}) transpose={transpose} "
@@ -260,17 +313,20 @@ def phase_kernels(dev):
                     f"{abs_rel_err(got, want)})")
             ms = cuda_ms(lambda: lk.solve_unblocked_batched(
                 lfac, b, inv_d, transpose), 5)
-            plain_ms = cuda_ms(lambda: lk.solve_unblocked_plain(
-                lfac, b, inv_d, transpose), 1)
+            nbytes = (lfac.numel() + 2 * b.numel() + inv_d.numel()) * 4
+            ops = _solve_ops(bb, n, m, L)
             print(f"solve ({bb},{n},{n})x{m} S={S} T={int(transpose)}: "
                   f"bit-exact  tile {geo['tm']} blocks {geo['blocks']}  "
-                  f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms", flush=True)
+                  f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
+                  f"%.5f ms (%s)" % bound_ms(nbytes, ops), flush=True)
             rows.setdefault("solve_unblocked_batched", []).append(
                 dict(shape=[bb, n, m, S, int(transpose)], err=0.0, ms=ms,
                      plain_ms=plain_ms, main=idx < FULL_WIDTH,
-                     bytes=(lfac.numel() + 2 * b.numel() + inv_d.numel()) * 4,
-                     ops=_solve_ops(bb, n, m, L)))
-    rows.update(_elementwise_checks(dev, rng, 47))
+                     bytes=nbytes, ops=ops))
+    for S in (47,) + HIGH_SLOTS:
+        for name, recs in _elementwise_checks(
+                dev, rng, S, n=48 * 32 * 32 if S == 47 else 4096).items():
+            rows.setdefault(name, []).extend(recs)
     phase("3 kernels vs plain", t)
     return rows
 
@@ -297,9 +353,10 @@ def _random_limbs(rng, n, S, dev):
     return torch.from_numpy(x).to(dev)
 
 
-def _elementwise_checks(dev, rng, S, n=48 * 32 * 32):
+def _elementwise_checks(dev, rng, S, n):
     """limb_add/mul/div against their plain versions, bit for bit, at
-    the size of one full-width trailing update (48 x 32 x 32 values)."""
+    the size of one full-width trailing update (48 x 32 x 32 values at
+    S = 47) or at 4096 values."""
     import torch
 
     from sdpb_tpu_torch.mp import limb
@@ -317,8 +374,7 @@ def _elementwise_checks(dev, rng, S, n=48 * 32 * 32):
                               ("limb_mul", lk.limb_mul, limb.mul_plain),
                               ("limb_div", lk.limb_div, limb.div_plain)):
         got = kern(a, b)
-        want = plain(a, b)
-        torch.cuda.synchronize()
+        want, plain_ms = timed_once(lambda: plain(a, b))
         if not same_bits(got, want):
             bad = (got.nan_to_num(0.0) != want.nan_to_num(0.0)).any(-1)
             i = int(bad.nonzero()[0, 0])
@@ -326,12 +382,12 @@ def _elementwise_checks(dev, rng, S, n=48 * 32 * 32):
                                  f"at {i}: {got[i].tolist()} vs "
                                  f"{want[i].tolist()}")
         ms = cuda_ms(lambda: kern(a, b), 5)
-        plain_ms = cuda_ms(lambda: plain(a, b), 2)
+        nbytes, ops = 3 * n * S * 4, n * per_op[name]
         print(f"{name} ({n},{S}): bit-exact  kernel {ms:.3f} ms  plain "
-              f"{plain_ms:.3f} ms", flush=True)
+              f"{plain_ms:.3f} ms  bound %.5f ms (%s)" % bound_ms(nbytes, ops),
+              flush=True)
         rows[name] = [dict(shape=[n, S], err=0.0, ms=ms, plain_ms=plain_ms,
-                           bytes=3 * n * S * 4, ops=n * per_op[name],
-                           main=True)]
+                           bytes=nbytes, ops=ops, main=S == 47)]
     return rows
 
 
@@ -342,33 +398,43 @@ def phase_1d(dev, out_root: Path):
 
     sdp = REPO / "sdpb_tpu_torch" / "data" / "quickstart_1d_sdp"
     out = out_root / "quickstart_out"
+    ck = out_root / "quickstart_ck"
+    shutil.rmtree(ck, ignore_errors=True)
     lk.reset_launches()
-    rc = sdpb.main(["-s", str(sdp), "-o", str(out), "--precision", "212",
-                    "--noFinalCheckpoint", "--verbosity", "0"])
+    rc = sdpb.main(["-s", str(sdp), "-o", str(out), "-c", str(ck),
+                    "--precision", "212", "--noFinalCheckpoint",
+                    "--verbosity", "0"])
     launches = dict(lk.LAUNCHES)
     if rc != 0:
         raise AssertionError(f"sdpb exited {rc}")
-    fields = {}
-    for line in (out / "out.txt").read_text().splitlines():
-        key, _, val = line.partition("=")
-        fields[key.strip()] = val.strip().rstrip(";")
-    import mpmath
-
-    mpmath.mp.prec = 256
-    obj = mpmath.mpf(fields["primalObjective"])
-    dev_obj = abs(obj - mpmath.mpf("1.8402657631320492"))
+    fields, dev_obj = _check_1d_out(out)
     print(f"1d: {fields['terminateReason']} primalObjective "
-          f"{fields['primalObjective'][:40]} |diff| "
-          f"{mpmath.nstr(dev_obj, 5)} launches {launches}", flush=True)
-    if fields["terminateReason"] != '"found primal-dual optimal solution"':
-        raise AssertionError(f"1d ended {fields['terminateReason']}")
-    if not dev_obj <= mpmath.mpf("1e-15"):
-        raise AssertionError(f"1d primalObjective off by {dev_obj}")
+          f"{fields['primalObjective'][:40]} |diff| {dev_obj:.3e} "
+          f"launches {launches}", flush=True)
     if min(launches.values()) <= 0:
         raise AssertionError(f"1d did not launch every kernel: {launches}")
     _check_1d_trajectory(out / "iterations.json")
     phase("4 1d end to end", t)
     return launches
+
+
+def _check_1d_out(out: Path):
+    """out.txt's fields and |primalObjective - 1.8402657631320492|;
+    fails unless PrimalDualOptimal within 1e-15."""
+    import mpmath
+
+    fields = {}
+    for line in (out / "out.txt").read_text().splitlines():
+        key, _, val = line.partition("=")
+        fields[key.strip()] = val.strip().rstrip(";")
+    mpmath.mp.prec = 256
+    obj = mpmath.mpf(fields["primalObjective"])
+    dev_obj = abs(obj - mpmath.mpf("1.8402657631320492"))
+    if fields["terminateReason"] != '"found primal-dual optimal solution"':
+        raise AssertionError(f"1d ended {fields['terminateReason']}")
+    if not dev_obj <= mpmath.mpf("1e-15"):
+        raise AssertionError(f"1d primalObjective off by {dev_obj}")
+    return fields, float(dev_obj)
 
 
 def _check_1d_trajectory(path: Path):
@@ -409,19 +475,20 @@ def _check_1d_trajectory(path: Path):
           f"differences: " + json.dumps(worst), flush=True)
 
 
-def phase_full(dev, iterations=2):
+def phase_full(dev, iterations=1):
     t = time.time()
     import torch
 
     from sdpb_tpu_torch.ops import limb_kernels as lk
-    from sdpb_tpu_torch.solver import driver, synthetic
+    from sdpb_tpu_torch.solver import driver, memory, synthetic
     from sdpb_tpu_torch.solver.params import SolverParams
     from sdpb_tpu_torch.utils.timers import Timers
 
     params = SolverParams(precision=400, max_iterations=iterations)
-    problem, state = synthetic.build_problem(params, device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    problem, state = synthetic.build_problem(params, device=dev)
+    estimate = memory.estimate_solver_memory(problem).total
     timers = Timers()
     lk.reset_launches()
     t_solve = time.time()
@@ -444,16 +511,18 @@ def phase_full(dev, iterations=2):
             split[leaf] = split.get(leaf, 0.0) + (stop - start)
     print("full width phase split (s): " + json.dumps(
         {k: round(v, 3) for k, v in split.items()}), flush=True)
-    print(f"full width max_memory_allocated "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          f"launches {launches}", flush=True)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"full width max_memory_allocated {peak / 2**30:.3f} GiB "
+          f"estimate {estimate / 2**30:.3f} GiB launches {launches}",
+          flush=True)
     if n_it < iterations:
         raise AssertionError(f"full width ran {n_it} iterations")
     if min(launches.values()) <= 0:
         raise AssertionError(f"full width missed a kernel: {launches}")
     _profile_iteration(problem, state, seconds / n_it)
     phase("5 full width", t)
-    return launches
+    return launches, {"N": problem.dual_dim, "peak": peak,
+                      "estimate": estimate}
 
 
 # Device kernels by what launched them: the port's own CUDA kernels, the
@@ -515,7 +584,221 @@ def _profile_iteration(problem, state, s_per_it):
         "top_device_ms": {k[:120]: v for k, v in top}}), flush=True)
 
 
-def kernel_json(rows, launches):
+def _port_env():
+    """The environment of the port's CLI processes: the checkout on the
+    module path."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def _run(cmd, cwd, timeout=600):
+    proc = subprocess.run(cmd, cwd=cwd, env=_port_env(), capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"{' '.join(cmd)} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return proc
+
+
+def _records(path: Path) -> list:
+    return json.loads(path.read_text()) if path.exists() else []
+
+
+def phase_frontend(dev, out_root: Path):
+    """The user's workflow in the port, each tool a process of its own:
+    pmp_writer -> pmp2sdp -> sdpb with checkpoints, a SIGTERM drain and
+    a restart; then 5 iterations at --precision 2048 in process (their
+    kernel launches counted)."""
+    t = time.time()
+    import torch
+
+    from sdpb_tpu_torch.apps import sdpb
+    from sdpb_tpu_torch.io import pmp_writer
+    from sdpb_tpu_torch.mp import limb
+    from sdpb_tpu_torch.ops import limb_kernels as lk
+
+    work = out_root / "frontend"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    # examples/quickstart.py:33-44
+    pmp_writer.write_pmp_json(
+        work / "pmp.json", objective=[0, -1], normalization=[1, 0],
+        matrices=[pmp_writer.PositiveMatrixWithPrefactor(
+            prefactor=pmp_writer.DampedRational(
+                constant=1, base="0.36787944117144233", poles=[]),
+            polynomials=[[[[1, 0, 0, 0, 1], [0, 0, 1, 0, "1/12"]]]])])
+    py = sys.executable
+    _run([py, "-m", "sdpb_tpu_torch.apps.pmp2sdp", "-p", "768", "-i",
+          "pmp.json", "-o", "quickstart_1d_sdp"], work)
+    want = REPO / "sdpb_tpu_torch" / "data" / "quickstart_1d_sdp"
+    got = work / "quickstart_1d_sdp"
+    names = sorted(p.name for p in want.iterdir())
+    if sorted(p.name for p in got.iterdir()) != names or any(
+            (got / n).read_bytes() != (want / n).read_bytes() for n in names):
+        raise AssertionError("pmp2sdp's SDP differs from the committed "
+                             "quickstart_1d_sdp")
+    print(f"pmp2sdp: {len(names)} files equal byte for byte to the "
+          f"committed quickstart_1d_sdp", flush=True)
+
+    cmd = [py, "-m", "sdpb_tpu_torch.apps.sdpb", "-s", "quickstart_1d_sdp",
+           "-o", "out", "-c", "ck", "--precision", "212",
+           "--checkpointInterval", "1"]
+    iters = work / "out" / "iterations.json"
+    proc = subprocess.Popen(cmd, cwd=work, env=_port_env(),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        deadline = time.time() + 600
+        while (not iters.exists()
+               or len(iters.read_text().splitlines()) < 20):
+            if proc.poll() is not None or time.time() > deadline:
+                raise AssertionError("sdpb ended or stalled before 20 lines "
+                                     f"of iterations.json: {proc.poll()}")
+            time.sleep(0.05)
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 143:
+        raise AssertionError(f"SIGTERM: sdpb exited {proc.returncode}, not "
+                             f"143\n{stdout[-2000:]}\n{stderr[-2000:]}")
+    meta = json.loads((work / "ck" / "checkpoint.json").read_text())
+    drained = _records(iters)
+    print(f"SIGTERM after {len(drained)} iterations: exit 143, checkpoint "
+          f"generation {meta['current']} in ck/", flush=True)
+    _run(cmd, work)
+    fields, dev_obj = _check_1d_out(work / "out")
+    restarted = _records(iters)
+    meta2 = json.loads((work / "ck" / "checkpoint.json").read_text())
+    if not (work / "ck" / "block_timings").exists():
+        raise AssertionError("the restarted solve wrote no ck/block_timings")
+    if meta2["current"] <= meta["current"]:
+        raise AssertionError("the restarted solve wrote no final checkpoint")
+    print(f"restart: {len(restarted)} more iterations "
+          f"({len(drained) + len(restarted)} in all), "
+          f"{fields['terminateReason']}, primalObjective "
+          f"{fields['primalObjective'][:40]} |diff| {dev_obj:.3e}; "
+          f"block_timings and final checkpoint generation "
+          f"{meta2['current']} written", flush=True)
+
+    prec = 2048
+    S = limb.slots_for_precision(prec)
+    lk.reset_launches()
+    rc = sdpb.main(["-s", str(got), "-o", str(work / "out_2048"), "-c",
+                    str(work / "ck_2048"), "--precision", str(prec),
+                    "--maxIterations", "5", "--verbosity", "0"])
+    torch.cuda.synchronize()
+    launches = dict(lk.LAUNCHES)
+    recs = _records(work / "out_2048" / "iterations.json")
+    if rc != 0 or len(recs) != 5:
+        raise AssertionError(f"--precision {prec}: exit {rc}, "
+                             f"{len(recs)} iterations")
+    import mpmath
+
+    for rec in recs:
+        for key in ("mu", "P-err", "p-err", "D-err", "gap"):
+            if not mpmath.isfinite(mpmath.mpf(rec[key])):
+                raise AssertionError(f"--precision {prec} iteration "
+                                     f"{rec['iteration']}: {key} {rec[key]}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"--precision {prec} (S = {S}) missed a "
+                             f"kernel: {launches}")
+    print(f"--precision {prec} (S = {S}, class "
+          f"{lk.slot_class(S)[1]}): 5 iterations, finite residues, mu "
+          f"{recs[-1]['mu'][:12]}, launches {launches}", flush=True)
+    phase("6 front end and CLI", t)
+    return launches
+
+
+def phase_large(dev, n_dual=1024):
+    """One iteration with N = 1024: the Q Cholesky above 512 rows, on 32
+    panels of the kernels; its time, and peak memory against the
+    estimate."""
+    t = time.time()
+    import torch
+
+    from sdpb_tpu_torch.mp import linalg as la
+    from sdpb_tpu_torch.ops import limb_kernels as lk
+    from sdpb_tpu_torch.solver import driver, memory, synthetic
+    from sdpb_tpu_torch.solver.params import SolverParams
+
+    params = SolverParams(precision=400, max_iterations=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    problem, state = synthetic.build_problem(params, device=dev,
+                                             n_dual=n_dual)
+    estimate = memory.estimate_solver_memory(problem)
+    q_chol = {}
+    cholesky = la.cholesky
+
+    def timed_cholesky(a):
+        """The Q Cholesky timed and its launches counted (the other
+        Cholesky calls pass through)."""
+        if a.shape[-3] != n_dual:
+            return cholesky(a)
+        torch.cuda.synchronize()
+        before = dict(lk.LAUNCHES)
+        t0 = time.time()
+        out = cholesky(a)
+        torch.cuda.synchronize()
+        q_chol["seconds"] = time.time() - t0
+        q_chol["launches"] = {k: lk.LAUNCHES[k] - before[k]
+                              for k in before}
+        return out
+
+    lk.reset_launches()
+    la.cholesky = timed_cholesky
+    try:
+        t0 = time.time()
+        result = driver.solve(problem, params, state=state)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    finally:
+        la.cholesky = cholesky
+    launches = dict(lk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for rec in result.iterations:
+        for val in (rec.primal_error_P, rec.dual_error, rec.mu):
+            if not math.isfinite(float(val)):
+                raise AssertionError(f"N = {n_dual}: non-finite residue "
+                                     f"{val}")
+    if len(result.iterations) != 1:
+        raise AssertionError(f"N = {n_dual} ran {len(result.iterations)} "
+                             "iterations")
+    panels = -(-n_dual // 32)
+    ql = q_chol.get("launches", {})
+    if (ql.get("cholesky_unblocked_batched") != panels
+            or ql.get("solve_unblocked_batched") != panels - 1):
+        raise AssertionError(f"the Q Cholesky did not run the kernels on "
+                             f"{panels} panels: {ql}")
+    print(f"N = {n_dual}: 1 iteration in {seconds:.2f} s/iteration; Q "
+          f"Cholesky {q_chol['seconds']:.3f} s ({panels} panels, launches "
+          f"{ql}); max_memory_allocated {peak / 2**30:.3f} GiB, estimate "
+          f"{estimate.total / 2**30:.3f} GiB", flush=True)
+    print(estimate.message(), flush=True)
+    phase("7 above 512 rows", t)
+    return launches, {"N": n_dual, "peak": peak, "estimate": estimate.total}
+
+
+def check_memory_estimates(cells):
+    """A fail-fast check that predicts too little guards nothing."""
+    for cell in cells:
+        ratio = cell["estimate"] / cell["peak"]
+        print(f"memory N = {cell['N']}: estimate / measured peak = "
+              f"{ratio:.3f}", flush=True)
+        if ratio < 0.9:
+            raise AssertionError(f"N = {cell['N']}: the memory estimate "
+                                 f"is {1 - ratio:.1%} below the peak")
+
+
+def kernel_json(rows, paths):
+    """One record per kernel: its largest full-width shape's times and
+    bound, ``launches`` from the full-width iteration (phase 5), and
+    each path's launches beside them."""
+    launches = paths["full_width"]
     meta = {
         "cholesky_unblocked_batched": "sdpb_tpu/ops/limb_kernels.py:251",
         "solve_unblocked_batched": "sdpb_tpu/ops/limb_kernels.py:180",
@@ -531,17 +814,17 @@ def kernel_json(rows, launches):
     out = []
     for name, recs in rows.items():
         rec = max((r for r in recs if r["main"]), key=lambda r: r["ops"])
-        t_bytes = rec["bytes"] / PEAK_BYTES_PER_S * 1e3
-        t_ops = rec["ops"] / PEAK_F32_PER_S * 1e3
+        bound, bound_by = bound_ms(rec["bytes"], rec["ops"])
         out.append({
             "name": name, "route": "cuda",
             "source": sources[name],
             "replaces": meta[name], "launches": launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in recs),
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "shape": rec["shape"]})
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None, "shape": rec["shape"],
+            "launches_by_path": {p: n.get(name, 0)
+                                 for p, n in paths.items()}})
     return {"kernels": out}
 
 
@@ -562,10 +845,13 @@ def main(argv=None) -> int:
     card = phase_env()
     phase_build()
     rows = phase_kernels(dev)
-    phase_1d(dev, out_root)
-    launches = phase_full(dev)
+    paths = {"1d": phase_1d(dev, out_root)}
+    paths["full_width"], full_mem = phase_full(dev)
+    paths["cli_2048"] = phase_frontend(dev, out_root)
+    paths["n_1024"], large_mem = phase_large(dev)
+    check_memory_estimates([full_mem, large_mem])
     print(card, flush=True)
-    print(json.dumps(kernel_json(rows, launches)), flush=True)
+    print(json.dumps(kernel_json(rows, paths)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,15 +1,23 @@
 """`sdpb` CLI of the port: solve an SDP directory on one CUDA device in
-the base-2^9 limb format, with the JAX package's flags.
+the base-2^9 limb format, with the JAX package's flags and contract.
 
     python -m sdpb_tpu_torch.apps.sdpb -s <sdp dir> [-o <out dir>] \\
-        --precision 400 --noFinalCheckpoint
+        [-c <checkpoint dir>] --precision 400
 
 Outputs: out.txt, y.txt, x_<i>.txt (per --writeSolution),
-iterations.json and c_minus_By/c_minus_By.json.  Parts of the JAX CLI
-this port does not have yet exit non-zero naming the missing module:
-checkpoint write and restart (solver/checkpoint.py), multi-device
-solves (parallel/), and the float64-expansion CPU format (--device cpu:
-the expansion branch of mp/core.py).
+iterations.json and c_minus_By/c_minus_By.json; in the checkpoint
+directory (default <sdpDir sibling>/ck) a checkpoint every
+--checkpointInterval seconds, on SIGTERM (then exit 143) and at the end
+unless --noFinalCheckpoint, and block_timings after every solve.  A run
+restarts from -i, or from an existing ck/checkpoint.json.  The memory
+estimate is checked against the device's free memory before anything is
+allocated there (exit 1 over it).  --precision above the kernels'
+largest slot class (ops/limb_kernels.py) is refused at startup.
+
+Not in this port yet (exit 2, naming the missing module): multi-device
+solves (parallel/, with the intra-block fallback), and the
+float64-expansion format (--device cpu: the expansion branch of
+mp/core.py).
 """
 
 from __future__ import annotations
@@ -33,12 +41,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Binary precision (bits)")
     p.add_argument("--maxIterations", type=int, default=500)
     p.add_argument("--maxRuntime", type=float, default=2 ** 53)
-    p.add_argument("--checkpointInterval", type=float, default=None,
-                   help="Not available: checkpoints are not written")
+    p.add_argument("--checkpointInterval", type=float, default=3600,
+                   help="Seconds between checkpoints")
     p.add_argument("--maxSharedMemory", default="0",
                    help="Byte cap (optional K/M/G suffix) on the Q residue "
                         "buffers: the exact integer SYRK is tiled into "
-                        "block chunks that fit under it. 0 = no cap.")
+                        "block chunks that fit under it. 0 = no cap. The "
+                        "total allocation is checked separately against "
+                        "the device's free memory at startup.")
     p.add_argument("--dualityGapThreshold", default="1e-30")
     p.add_argument("--primalErrorThreshold", default="1e-30")
     p.add_argument("--dualErrorThreshold", default="1e-30")
@@ -56,8 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--detectDualFeasibleJump", action="store_true")
     p.add_argument("--writeSolution", default="x,y",
                    help="Comma-separated subset of x,y,z,X,Y")
-    p.add_argument("--noFinalCheckpoint", action="store_true",
-                   help="Required: the final checkpoint is not written")
+    p.add_argument("--noFinalCheckpoint", action="store_true")
     p.add_argument("-c", "--checkpointDir", default=None)
     p.add_argument("-i", "--initialCheckpointDir", default=None)
     p.add_argument("--verbosity", type=int, default=1,
@@ -86,6 +95,14 @@ def main(argv=None, device=None) -> int:
     args = build_parser().parse_args(argv)
     import torch
 
+    from ..ops.limb_kernels import MAX_SLOTS, max_precision_bits
+
+    if args.precision > max_precision_bits():
+        print(f"sdpb: --precision {args.precision} needs more than the "
+              f"{MAX_SLOTS} slots of the largest kernel class; the largest "
+              f"precision this port takes is {max_precision_bits()}",
+              file=sys.stderr)
+        return 2
     sdp_dir = pathlib.Path(args.sdpDir)
     out_dir = pathlib.Path(args.outDir) if args.outDir else \
         sdp_dir.parent / "out"
@@ -104,18 +121,15 @@ def main(argv=None, device=None) -> int:
                 "(multi-device solves; make one visible with "
                 "CUDA_VISIBLE_DEVICES)", "parallel/")
     device = torch.device(device)
-    if not args.noFinalCheckpoint:
-        return _missing("the final checkpoint (pass --noFinalCheckpoint)",
-                        "solver/checkpoint.py")
-    if args.checkpointInterval is not None:
-        return _missing("--checkpointInterval", "solver/checkpoint.py")
-    if args.initialCheckpointDir or (ck_dir / "checkpoint.json").exists():
-        return _missing("restart from a checkpoint", "solver/checkpoint.py")
 
     from ..io import output as out_io
     from ..io.sdp_json import read_sdp
+    from ..solver import placement
+    from ..solver.checkpoint import load_checkpoint, save_checkpoint
     from ..solver.data import bucketed_problem_from_raw
     from ..solver.driver import NonFiniteIterateError, solve
+    from ..solver.memory import (MemoryLimitError, check_memory_limit,
+                                 shape_of_raw)
     from ..solver.params import SolverParams
     from ..utils.timers import Timers, Verbosity, rotate_profiling_dir
 
@@ -123,6 +137,7 @@ def main(argv=None, device=None) -> int:
         precision=args.precision,
         max_iterations=args.maxIterations,
         max_runtime=args.maxRuntime,
+        checkpoint_interval=args.checkpointInterval,
         duality_gap_threshold=args.dualityGapThreshold,
         primal_error_threshold=args.primalErrorThreshold,
         dual_error_threshold=args.dualErrorThreshold,
@@ -143,6 +158,15 @@ def main(argv=None, device=None) -> int:
 
     t_start = time.time()
     raw = read_sdp(sdp_dir, k=params.n_read_words)
+    # fail fast, before anything is allocated on the device
+    # (`run.cxx:80-183`)
+    try:
+        check_memory_limit(shape_of_raw(raw, params.n_words), device=device,
+                           verbose=args.verbosity >= 2,
+                           q_bytes_cap=args.maxSharedMemory)
+    except MemoryLimitError as e:
+        print(f"sdpb: {e}", file=sys.stderr)
+        return 1
     problem = bucketed_problem_from_raw(raw, params.n_words, device)
     if args.verbosity >= 1:
         dims = sum(bk.nb * bk.shape.schur_size for bk in problem.buckets)
@@ -154,6 +178,14 @@ def main(argv=None, device=None) -> int:
               f"\tdual dimension: {problem.dual_dim}\n"
               f"\tSDP blocks: {problem.num_blocks}", flush=True)
 
+    state = None
+    if args.initialCheckpointDir or (ck_dir / "checkpoint.json").exists():
+        ck_in = pathlib.Path(args.initialCheckpointDir or ck_dir)
+        state = load_checkpoint(ck_in, problem, params)
+        if state is not None and args.verbosity >= 1:
+            print(f"Loaded checkpoint from {ck_in}", flush=True)
+
+    # SIGTERM drain (`Environment.cxx:12-18`, `run.cxx:330-360`)
     sigterm = {"flag": False}
 
     def _on_sigterm(signum, frame):
@@ -161,6 +193,7 @@ def main(argv=None, device=None) -> int:
 
     old_handler = signal.signal(signal.SIGTERM, _on_sigterm)
     it_writer = out_io.IterationsJsonWriter(out_dir / "iterations.json")
+    last_ck = {"t": time.time()}
 
     def hook(rec, cur_state):
         it_writer.write(rec, total_time=time.time() - t_start)
@@ -169,30 +202,38 @@ def main(argv=None, device=None) -> int:
                   f"gap={float(rec.duality_gap):.3e} "
                   f"steps=({rec.primal_step:.4f},{rec.dual_step:.4f})",
                   flush=True)
+        if time.time() - last_ck["t"] >= params.checkpoint_interval:
+            save_checkpoint(ck_dir, cur_state, problem, params)
+            last_ck["t"] = time.time()
         if sigterm["flag"]:
+            # drain: checkpoint the iterate, then unwind
+            save_checkpoint(ck_dir, cur_state, problem, params)
             raise KeyboardInterrupt("SIGTERM")
 
     timers = Timers(Verbosity(min(args.verbosity, 3)))
     try:
         with timers.scoped("sdpb.solve"):
-            result = solve(problem, params, iteration_hook=hook,
+            result = solve(problem, params, state=state, iteration_hook=hook,
                            timers=timers)
     except NonFiniteIterateError as e:
         print(f"sdpb: {e}", file=sys.stderr)
         return 1
     except KeyboardInterrupt:
-        print("SIGTERM received; no checkpoint written "
-              "(solver/checkpoint.py is not ported)", file=sys.stderr)
+        if args.verbosity >= 1:
+            print("SIGTERM received; checkpoint written", flush=True)
         return 143
     finally:
         it_writer.close()
         signal.signal(signal.SIGTERM, old_handler)
 
+    placement.write_flop_model_timings(ck_dir, problem)
     if args.verbosity >= 2:
         prof_dir = rotate_profiling_dir(
             ck_dir.parent / (ck_dir.name + ".profiling"))
         timers.write_profile(prof_dir / "profiling.0")
     runtime = int(time.time() - t_start)
+    if not args.noFinalCheckpoint:
+        save_checkpoint(ck_dir, result.state, problem, params)
     out_io.save_solution(out_dir, result, problem, runtime,
                          write_solution=args.writeSolution,
                          normalization=raw.normalization)

@@ -7,9 +7,12 @@
 //
 // This is the arithmetic of sdpb_tpu/mp/limb.py (and of the port's plain
 // PyTorch version, sdpb_tpu_torch/mp/limb.py) written per element.  Limb
-// products are below 2^16 and at most ~130 of them are summed, so every
-// intermediate is an integer below 2^24 and float32 arithmetic is exact in
-// any order: add, neg and mul agree bit for bit with the tensor versions.
+// products are below 2^17 and L of them are summed; while every partial
+// sum is an integer below 2^24, float32 arithmetic is exact in any order
+// and add, neg and mul agree bit for bit with the tensor versions.  That
+// holds for any limbs up to S = 231 slots (|l| <= 270) and, above it, for
+// all but limb patterns of one sign near +-256 throughout, a bound the
+// JAX format shares.
 // The rounded steps (the f32 mantissa estimate, the rsqrt seed) use the
 // same IEEE operations: rintf rounds half to even like torch.round, the
 // seed is 1.0f / sqrtf(x) (both correctly rounded without fast math), and
@@ -29,8 +32,18 @@ constexpr float kInvBeta = 1.0f / 512.0f;
 constexpr float kInvBeta2 = 1.0f / 262144.0f;
 constexpr int kEoff = 16384;
 constexpr int kZeroE = -10000000;
-// Largest S the kernels take: --precision 1024 needs S = 116.
-constexpr int kMaxSlots = 128;
+// The slot class a unit is built for (ops/limb_kernels.py SLOT_CLASSES):
+// the kernels take values of kMinSlots..kMaxSlots slots, and the local
+// arrays below hold kMaxSlots.  --precision 1024 needs S = 116, 2048
+// S = 230 and 4096 S = 458.
+#ifndef LIMB_MIN_SLOTS
+#define LIMB_MIN_SLOTS 4
+#endif
+#ifndef LIMB_MAX_SLOTS
+#define LIMB_MAX_SLOTS 128
+#endif
+constexpr int kMinSlots = LIMB_MIN_SLOTS;
+constexpr int kMaxSlots = LIMB_MAX_SLOTS;
 constexpr int kMaxExt = kMaxSlots + 4;
 
 __device__ __forceinline__ int floordiv(int a, int b) {

@@ -152,29 +152,47 @@ int launch(const float* a, float* out, int bb, int n, int S, int steps,
   return (int)cudaGetLastError();
 }
 
+// Warps per block by the registers R of one value: the pivot's code sets
+// the register budget, and __launch_bounds__(W * 32, 1) leaves 65536 /
+// (32 W) registers a lane (at most 255).  Mirrored by
+// ops/limb_kernels.py::CHOL_WARPS.
+constexpr int chol_warps(int R) { return R == 1 ? 32 : (R <= 3 ? 16 : 8); }
+
 }  // namespace
+
+// The unit is compiled once for each R of its slot class (-DLIMB_R=R),
+// so that the instantiations build in parallel; each object exports the
+// launcher chol_unblocked_launch_r<R>, and the object of the class's
+// lowest R also the class's entry points (-DLIMB_CLASS_ENTRIES).
+#ifndef LIMB_R
+#error "compile with -DLIMB_R=<registers per value>"
+#endif
+#define LIMB_PASTE2(a, b) a##b
+#define LIMB_PASTE(a, b) LIMB_PASTE2(a, b)
 
 extern "C" {
 
+int LIMB_PASTE(chol_unblocked_launch_r, LIMB_R)(const float* a, float* out,
+                                                 int bb, int n, int S,
+                                                 int steps, int warps,
+                                                 void* stream) {
+  if (S < limb::kMinSlots || S > limb::kMaxSlots ||
+      limbw::regs_for(S) != LIMB_R || warps != chol_warps(LIMB_R))
+    return (int)cudaErrorInvalidValue;
+  return launch<LIMB_R, chol_warps(LIMB_R)>(a, out, bb, n, S, steps,
+                                            (cudaStream_t)stream);
+}
+
+#ifdef LIMB_CLASS_ENTRIES
+int limb_min_slots() { return limb::kMinSlots; }
+
 int limb_max_slots() { return limb::kMaxSlots; }
+
+int limb_chol_warps(int S) { return chol_warps(limbw::regs_for(S)); }
 
 int limb_chol_smem_bytes(int n, int S, int warps) {
   return chol_smem_floats(n, S, warps) * (int)sizeof(float);
 }
-
-// Built for these (registers per value, warps per block) pairs only;
-// ops/limb_kernels.py::CHOL_WARPS picks among them.
-int chol_unblocked_launch(const float* a, float* out, int bb, int n, int S,
-                          int steps, int warps, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (limbw::regs_for(S) * 100 + warps) {
-    case 132: return launch<1, 32>(a, out, bb, n, S, steps, st);
-    case 216: return launch<2, 16>(a, out, bb, n, S, steps, st);
-    case 316: return launch<3, 16>(a, out, bb, n, S, steps, st);
-    case 408: return launch<4, 8>(a, out, bb, n, S, steps, st);
-    case 508: return launch<5, 8>(a, out, bb, n, S, steps, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
+#endif
 
 }  // extern "C"

@@ -43,6 +43,9 @@ __global__ void elementwise_kernel(const float* __restrict__ a,
 extern "C" int limb_elementwise_launch(const float* a, const float* b,
                                        float* out, long n, int S, int op,
                                        void* stream) {
+  // the local arrays of limb.cuh hold the unit's slot class
+  if (S < limb::kMinSlots || S > limb::kMaxSlots)
+    return (int)cudaErrorInvalidValue;
   long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 65535L * 8) blocks = 65535L * 8;
   if (blocks < 1) blocks = 1;

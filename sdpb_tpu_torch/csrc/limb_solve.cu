@@ -43,12 +43,16 @@ __host__ __device__ int solve_smem_floats(int n, int tm, int S, int W) {
   return tm * S + n * S + W * limbw::scratch_floats(limbw::regs_for(S));
 }
 
-// Four blocks per SM, so at most 64 registers a thread: the kernel is
-// throughput-bound and wants the warps more than the registers.
-constexpr int kBlocksPerSm = 4;
+// Blocks per SM by the registers R of one value: four (at most 64
+// registers a thread) up to R = 5, where the kernel is throughput-bound
+// and wants the warps more than the registers; fewer for the larger
+// values of the higher slot classes, so that they do not spill.
+constexpr int solve_blocks_per_sm(int R) {
+  return R <= 5 ? 4 : (R <= 9 ? 2 : 1);
+}
 
 template <int R, int W>
-__global__ void __launch_bounds__(W * 32, kBlocksPerSm)
+__global__ void __launch_bounds__(W * 32, solve_blocks_per_sm(R))
     solve_warp_kernel(const float* __restrict__ l, const float* __restrict__ b,
                       const float* __restrict__ inv_d, float* out, int n,
                       int m, int S, int tm, int transpose) {
@@ -113,32 +117,34 @@ int launch(const float* l, const float* b, const float* inv_d, float* out,
   return (int)cudaGetLastError();
 }
 
+// Eight warps a block; ops/limb_kernels.py::SOLVE_WARPS.
+constexpr int kSolveWarps = 8;
+
 }  // namespace
+
+// One object per R of the slot class, as in limb_chol.cu.
+#ifndef LIMB_R
+#error "compile with -DLIMB_R=<registers per value>"
+#endif
+#define LIMB_PASTE2(a, b) a##b
+#define LIMB_PASTE(a, b) LIMB_PASTE2(a, b)
 
 extern "C" {
 
+int LIMB_PASTE(solve_unblocked_launch_r, LIMB_R)(
+    const float* l, const float* b, const float* inv_d, float* out, int bb,
+    int n, int m, int S, int tm, int transpose, int warps, void* stream) {
+  if (S < limb::kMinSlots || S > limb::kMaxSlots ||
+      limbw::regs_for(S) != LIMB_R || warps != kSolveWarps)
+    return (int)cudaErrorInvalidValue;
+  return launch<LIMB_R, kSolveWarps>(l, b, inv_d, out, bb, n, m, S, tm,
+                                     transpose, (cudaStream_t)stream);
+}
+
+#ifdef LIMB_CLASS_ENTRIES
 int limb_solve_smem_bytes(int n, int tm, int S, int warps) {
   return solve_smem_floats(n, tm, S, warps) * (int)sizeof(float);
 }
-
-// Built for these (registers per value, warps per block) pairs only;
-// ops/limb_kernels.py::solve_geometry picks among them.
-int solve_unblocked_launch(const float* l, const float* b, const float* inv_d,
-                           float* out, int bb, int n, int m, int S, int tm,
-                           int transpose, int warps, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-#define LIMB_SOLVE_CASE(R, W)                                                \
-  case R * 100 + W:                                                          \
-    return launch<R, W>(l, b, inv_d, out, bb, n, m, S, tm, transpose, st);
-  switch (limbw::regs_for(S) * 100 + warps) {
-    LIMB_SOLVE_CASE(1, 8)
-    LIMB_SOLVE_CASE(2, 8)
-    LIMB_SOLVE_CASE(3, 8)
-    LIMB_SOLVE_CASE(4, 8)
-    LIMB_SOLVE_CASE(5, 8)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef LIMB_SOLVE_CASE
-}
+#endif
 
 }  // extern "C"

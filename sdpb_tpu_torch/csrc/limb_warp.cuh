@@ -2,7 +2,7 @@
 // factorization kernels in limb_chol.cu and limb_solve.cu.
 //
 // The format is limb.cuh's (slot 0 the exponent code, slots 1..L the
-// balanced integer limbs).  Here a value of S <= 128 slots lives in the
+// balanced integer limbs).  Here a value of S slots lives in the
 // registers of one warp: lane t holds slots t, t + 32, t + 64, ... in
 // V<R>::v[0], v[1], ..., where R = ceil((S + 3) / 32) also covers the
 // L + 4 slots of a product before it is renormalized.  Slots past the
@@ -10,11 +10,11 @@
 //
 // Every operation gives the same bits as its per-thread version in
 // limb.cuh (and as the plain PyTorch version in mp/limb.py):
-// - A limb product is an integer below 2^17 and at most 127 of them are
-//   summed, so every partial sum is an integer below 2^24 and exact in
-//   float32 in any order and with or without a fused multiply-add: each
-//   lane sums the terms of its own output slots, from operands staged in
-//   shared memory.
+// - A limb product is an integer below 2^17 and L of them are summed;
+//   while every partial sum is an integer below 2^24 (limb.cuh says when)
+//   it is exact in float32 in any order and with or without a fused
+//   multiply-add: each lane sums the terms of its own output slots, from
+//   operands staged in shared memory.
 // - A carry pass reads each slot and its right neighbour before either
 //   is written, so it is a stencil, and p passes make slot i a function
 //   of slots i..i+p: each lane reads those from a shared-memory row once

@@ -1,5 +1,5 @@
-"""Binary block_data reader (the reference's DEFAULT block format);
-the port's copy of the reader half of sdpb_tpu/io/sdp_bin.py.
+"""Binary block_data codec (the reference's DEFAULT block format); the
+port's copy of sdpb_tpu/io/sdp_bin.py, reader and writer.
 
 The reference writes `block_data_<i>.bin` as a Boost binary archive
 (`src/pmp2sdp/write_block_data.cxx` write_block_data_bin) and reads it
@@ -291,3 +291,139 @@ def read_block_data_bin(buf: bytes, k: int, lay: Layout = LAYOUT):
         r._err(f"{len(r.b) - r.o} trailing bytes")
     return {"B": B, "c": c, "bilinear_bases_even": even,
             "bilinear_bases_odd": odd, "precision": r.prec}
+
+
+# ---------------------------------------------------------------------------
+# Archive writer
+# ---------------------------------------------------------------------------
+
+class BinWriter:
+    def __init__(self, precision: int, lay: Layout = LAYOUT):
+        self.lay = lay
+        self.prec = int(precision)
+        self.parts: list[bytes] = []
+        self.classes_seen = 0
+        self.class_versions: dict[str, int] = {}
+
+    def u(self, v: int, n: int, signed=False):
+        self.parts.append(int(v).to_bytes(n, "little", signed=signed))
+
+    def header(self):
+        self.u(len(_SIGNATURE), self.lay.size_t)
+        self.parts.append(_SIGNATURE)
+        self.u(self.lay.archive_version, self.lay.lib_version)
+        self.u(self.prec, self.lay.prec_t)
+
+    def class_info(self, key: str, version: int):
+        """First-occurrence bookkeeping: tracking byte + 4-byte class
+        version.  NO class id -- binary archives' save_override for
+        class_id_optional_type is a no-op."""
+        if key in self.class_versions:
+            return
+        self.u(0, 1)                       # tracking: never
+        self.u(version, self.lay.version)
+        self.classes_seen += 1
+        self.class_versions[key] = version
+
+    def bigfloat(self, words):
+        self.bigfloat_int_exp(*words_to_int_exp(words))
+
+    def bigfloat_int_exp(self, M: int, E: int):
+        self.class_info("El::BigFloat", 1)
+        if M == 0:
+            self.u(1, 1)                   # is_zero
+            return
+        self.u(0, 1)
+        n = -(-self.prec // (8 * self.lay.limb))
+        neg = M < 0
+        a = -M if neg else M
+        b = a.bit_length()
+        exp = E + b
+        a = _round_shift(a, b - 64 * n)    # mantissa into n limbs (top-aligned)
+        if a.bit_length() > 64 * n:        # rounding carried
+            a >>= 1
+            exp += 1
+        # mpfr invariant: bits below prec are zero
+        drop = 64 * n - self.prec
+        if drop:
+            a = _round_shift(a, drop)
+            if a.bit_length() > self.prec:
+                a >>= 1
+                exp += 1
+            a <<= drop
+        self.u(self.prec, self.lay.prec_t)
+        self.u(-1 if neg else 1, self.lay.sign_t, signed=True)
+        self.u(exp, self.lay.exp_t, signed=True)
+        self.parts.append(a.to_bytes(n * self.lay.limb, "little"))
+
+    def matrix(self, arr):
+        self.class_info("El::Matrix", 0)
+        h, w = arr.shape[0], arr.shape[1]
+        self.u(h, self.lay.el_int, signed=True)
+        self.u(w, self.lay.el_int, signed=True)
+        self.u(h, self.lay.el_int, signed=True)   # LDim = Height
+        for col in range(w):
+            for row in range(h):
+                self.bigfloat(arr[row, col])
+
+    def vector(self, arr):
+        self.class_info("std::vector", 0)
+        self.u(arr.shape[0], self.lay.size_t)
+        self.u(1, self.lay.item_version)   # item_version = BigFloat version
+        for i in range(arr.shape[0]):
+            self.bigfloat(arr[i])
+
+    def tobytes(self) -> bytes:
+        return b"".join(self.parts)
+
+
+def write_block_data_bin(B, c, even, odd, precision: int,
+                         lay: Layout = LAYOUT) -> bytes:
+    """f64-word arrays -> block_data_<i>.bin bytes (field order as in
+    `write_block_data.cxx` write_block_data_bin)."""
+    w = BinWriter(precision, lay)
+    w.header()
+    w.matrix(np.asarray(B))
+    w.vector(np.asarray(c))
+    w.matrix(np.asarray(even))
+    w.matrix(np.asarray(odd))
+    return w.tobytes()
+
+
+def mpf_int_exp(v) -> tuple[int, int]:
+    """Exact (M, E) of an mpmath mpf (value = M * 2^E)."""
+    sign, man, exp, _bc = v._mpf_
+    if man == 0:
+        return 0, 0
+    return (-man if sign else man), exp
+
+
+def write_block_data_bin_mpf(B, c, even, odd, precision: int, ctx,
+                             lay: Layout = LAYOUT) -> bytes:
+    """mpmath-valued nested lists -> block_data_<i>.bin bytes.  Exact:
+    mpf mantissa/exponent go straight into the mpfr limb encoding."""
+    w = BinWriter(precision, lay)
+    w.header()
+
+    def big(v):
+        w.bigfloat_int_exp(*mpf_int_exp(ctx.mpf(v)))
+
+    def matrix(rows):
+        w.class_info("El::Matrix", 0)
+        h = len(rows)
+        wd = len(rows[0]) if h else 0
+        for n in (h, wd, h):
+            w.u(n, lay.el_int, signed=True)
+        for col in range(wd):
+            for row in range(h):
+                big(rows[row][col])
+
+    matrix(B)
+    w.class_info("std::vector", 0)
+    w.u(len(c), lay.size_t)
+    w.u(1, lay.item_version)
+    for v in c:
+        big(v)
+    matrix(even)
+    matrix(odd)
+    return w.tobytes()

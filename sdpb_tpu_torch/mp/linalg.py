@@ -8,7 +8,7 @@ limb format on the route the accelerator takes there:
   elementwise limb product with a tree sum;
 - ``cholesky``, ``solve_lower`` and ``solve_lower_t`` are panel-blocked
   around the two limb kernels (``ops/limb_kernels.py``), with trailing
-  updates as CRT matmuls;
+  updates as CRT matmuls, for any number of rows;
 - ``lower_inverse`` builds L^-1 from kernel-inverted diagonal blocks.
 
 Routing follows the tensor's device, not a global: CUDA tensors launch
@@ -33,10 +33,6 @@ _INT_BACKEND_MIN_WORK = 16 * 1024
 _INT_BACKEND_MIN_WORK_PER_BATCH = 2 * 1024
 
 _PANEL = 32
-
-# Rows up to which the blocked kernel route serves (the JAX package
-# falls back to its XLA loops beyond it; that path is not ported).
-_KERNEL_MAX_ROWS = 512
 
 
 def _int_backend_ok(a_shape, p: int) -> bool:
@@ -64,10 +60,17 @@ def matmul(a, b, transpose_a: bool = False, transpose_b: bool = False,
         a = a.transpose(-3, -2)
     if transpose_b:
         b = b.transpose(-3, -2)
+    return _product(a, b, _int_backend_ok(a.shape[vdims:], b.shape[-2]),
+                    syrk)
+
+
+def _product(a, b, crt: bool, syrk: bool = False):
+    """a @ b on the route given: the CRT pipeline or the plain limb
+    product with a tree sum.  Either way each output entry depends only
+    on its own row of a and column of b."""
     n = a.shape[-2]
-    p = b.shape[-2]
     assert b.shape[-3] == n, (a.shape, b.shape)
-    if _int_backend_ok(a.shape[vdims:], p):
+    if crt:
         from ..ops import mpmm
 
         plan = mpmm.plan_for(core.precision_bits_of(a.shape[-1]), n)
@@ -157,11 +160,42 @@ def _pad_identity(a, npad: int):
     return out
 
 
-def _check_rows(n: int):
-    if n > _KERNEL_MAX_ROWS:
-        raise NotImplementedError(
-            f"limb Cholesky/solve with n={n} > {_KERNEL_MAX_ROWS}: the JAX "
-            "package's XLA fallback for large blocks is not ported yet")
+# The panel loops below update only the trailing block.  The JAX
+# package's static-shape loop (and the port before it) added each
+# panel's product to the whole matrix, so an entry already final took
+# one addition of a zero per remaining panel, and a non-finite panel
+# poisoned the whole matrix through the CRT product (on the plain
+# route, the columns of the right-hand side that it touched).  Both
+# effects are kept, so the bits are those of the whole-matrix form:
+# ``_zero_adds`` gives the finished entries their additions (stopping
+# once one leaves them unchanged), and the loops NaN what that form's
+# products would have poisoned.
+
+def _zero_adds(x, count: int):
+    """x after ``count`` additions of a zero limb value."""
+    zero = core.neg(torch.zeros_like(x))
+    for _ in range(count):
+        y = core.add(x, zero)
+        if torch.equal(y.view(torch.int32), x.view(torch.int32)):
+            break
+        x = y
+    return x
+
+
+def _nonfinite(a):
+    """Per matrix of a (BB, r, c, S): a slot 0 that is not finite."""
+    if a.shape[1] == 0 or a.shape[2] == 0:
+        return torch.zeros(a.shape[0], dtype=torch.bool, device=a.device)
+    return ~torch.isfinite(a[..., 0].abs().amax(dim=(-2, -1)))
+
+
+def _poison(out, bad, bad_cols=None):
+    """NaN the matrices flagged in ``bad`` (BB,) and the columns
+    flagged in ``bad_cols`` (BB, m)."""
+    out = torch.where(bad[:, None, None, None], torch.nan, out)
+    if bad_cols is not None:
+        out = torch.where(bad_cols[:, None, :, None], torch.nan, out)
+    return out
 
 
 def _cholesky_limb_batched(a):
@@ -173,35 +207,35 @@ def _cholesky_limb_batched(a):
     if n <= 2 * nb:
         return lk.cholesky_unblocked_batched(a.contiguous())
     npad = (-n) % nb
-    mat = _pad_identity(a, npad) if npad else a
+    mat = _pad_identity(a, npad) if npad else a.clone()
     N = n + npad
-    rows = torch.arange(N, device=a.device)
+    npanels = N // nb
+    # N >= 96 puts every whole-matrix update on the CRT route
     didx = torch.arange(nb, device=a.device)
-    for pi in range(N // nb):
-        j = pi * nb
-        l11 = lk.cholesky_unblocked_batched(
-            mat[:, j:j + nb, j:j + nb].contiguous())
-        inv_d = core.recip(l11[:, didx, didx, :])
-        C = mat[:, :, j:j + nb]
-        x = lk.solve_unblocked_batched(
-            l11, C.transpose(1, 2).contiguous(), inv_d)
-        below = (rows >= j + nb)[:, None, None]
-        slab = torch.where(below, x.transpose(1, 2), 0.0)
-        slab[:, j:j + nb] = l11
-        mat = mat.clone()
-        mat[:, :, j:j + nb] = slab
-        P = torch.where(below, slab, 0.0)
-        mat = core.add(mat, core.neg(matmul(P, P, transpose_b=True)))
+    bad = torch.zeros(BB, dtype=torch.bool, device=a.device)
+    for pi in range(npanels):
+        j, e = pi * nb, (pi + 1) * nb
+        l11 = lk.cholesky_unblocked_batched(mat[:, j:e, j:e].contiguous())
+        mat[:, j:e, j:e] = l11
+        if e < N:
+            inv_d = core.recip(l11[:, didx, didx, :])
+            l21 = lk.solve_unblocked_batched(
+                l11, mat[:, e:, j:e].transpose(1, 2).contiguous(),
+                inv_d).transpose(1, 2)
+            mat[:, e:, j:e] = l21
+            bad |= _nonfinite(l21)
+            upd = _product(l21, l21.transpose(1, 2), True, syrk=True)
+            mat[:, e:, e:] = core.add(mat[:, e:, e:], core.neg(upd))
+        mat[:, j:, j:e] = _zero_adds(mat[:, j:, j:e], npanels - pi)
+    rows = torch.arange(N, device=a.device)
     lower = (rows[:, None] >= rows[None, :])[:, :, None]
-    out = torch.where(lower, mat, 0.0)
+    out = torch.where(lower, _poison(mat, bad), 0.0)
     return out[:, :n, :n] if npad else out
 
 
 def cholesky(a):
     """Lower Cholesky of symmetric positive-definite limb matrices
     (..., n, n, S); a non-PD input gives NaNs."""
-    n = a.shape[-3]
-    _check_rows(n)
     batch = a.shape[:-3]
     out = _cholesky_limb_batched(a.reshape((-1,) + a.shape[-3:]))
     return out.reshape(batch + out.shape[1:])
@@ -209,7 +243,8 @@ def cholesky(a):
 
 def _solve_limb_batched(l, b, transpose: bool):
     """Batched blocked triangular solve, l (BB, n, n, S), b (BB, n, m, S):
-    per panel one solve-kernel call plus one CRT matmul update."""
+    per panel one solve-kernel call plus one CRT matmul update of the
+    rows still pending."""
     BB, n, k = l.shape[0], l.shape[-3], l.shape[-1]
     m = b.shape[-2]
     nb = _PANEL
@@ -221,37 +256,40 @@ def _solve_limb_batched(l, b, transpose: bool):
     npad = (-n) % nb
     if npad:
         l = _pad_identity(l, npad)
-        b = torch.cat([b, torch.zeros((BB, npad, m, k), dtype=b.dtype,
+        x = torch.cat([b, torch.zeros((BB, npad, m, k), dtype=b.dtype,
                                       device=b.device)], dim=1)
         onev = torch.as_tensor(core.one_np(k), device=l.device)
         inv_d = torch.cat([inv_d, onev.expand(BB, npad, k)], dim=1)
+    else:
+        x = b.clone()
     N = n + npad
-    rows = torch.arange(N, device=l.device)
     npanels = N // nb
-    x = b
+    crt = _int_backend_ok((BB, N, nb, k), m)
+    bad = torch.zeros(BB, dtype=torch.bool, device=l.device)
+    bad_cols = torch.zeros((BB, m), dtype=torch.bool, device=l.device)
     for t in range(npanels):
         pi = npanels - 1 - t if transpose else t
-        j = pi * nb
-        l11 = l[:, j:j + nb, j:j + nb].contiguous()
+        j, e = pi * nb, (pi + 1) * nb
         xp = lk.solve_unblocked_batched(
-            l11, x[:, j:j + nb].contiguous(),
-            inv_d[:, j:j + nb].contiguous(), transpose=transpose)
-        x = x.clone()
-        x[:, j:j + nb] = xp
-        if transpose:
-            lrow = torch.where((rows < j)[None, :, None],
-                               l[:, j:j + nb], 0.0)
-            x = core.add(x, core.neg(matmul(lrow, xp, transpose_a=True)))
+            l[:, j:e, j:e].contiguous(), x[:, j:e].contiguous(),
+            inv_d[:, j:e].contiguous(), transpose=transpose)
+        # the pending rows: above the panel (L^-T) or below it (L^-1)
+        rows = slice(0, j) if transpose else slice(e, N)
+        lpart = l[:, j:e, rows].transpose(1, 2) if transpose \
+            else l[:, rows, j:e]
+        if crt:
+            bad |= _nonfinite(xp) | _nonfinite(lpart)
         else:
-            lcol = torch.where((rows >= j + nb)[:, None, None],
-                               l[:, :, j:j + nb], 0.0)
-            x = core.add(x, core.neg(matmul(lcol, xp)))
+            bad_cols |= ~torch.isfinite(xp[..., 0]).all(dim=1)
+        if lpart.shape[1]:
+            x[:, rows] = core.add(x[:, rows],
+                                  core.neg(_product(lpart, xp, crt)))
+        x[:, j:e] = _zero_adds(xp, npanels - t)
+    x = _poison(x, bad, bad_cols)
     return x[:, :n] if npad else x
 
 
 def _route_limb_solve(l, b, transpose: bool):
-    n = l.shape[-3]
-    _check_rows(n)
     vec = b.dim() == l.dim() - 1
     if vec:
         b = b[..., None, :]

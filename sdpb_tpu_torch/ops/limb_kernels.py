@@ -10,12 +10,16 @@ are ``csrc/limb.cuh`` (the limb arithmetic per thread),
 ``csrc/limb_warp.cuh`` (the same arithmetic with one value per warp),
 ``csrc/limb_chol.cu`` and ``csrc/limb_solve.cu`` (the two factorization
 kernels, one MP operation per warp) and ``csrc/limb_elementwise.cu``,
-each kernel with a plain ``extern "C"`` launcher.  Each unit is compiled with ``nvcc`` at
-first use, all at once, and linked into one shared library
-(``csrc/build/``, rebuilt when a source changes) called through
-``ctypes``; no PyTorch header is involved.  ``chol_geometry`` and
-``solve_geometry`` choose each launch's warps, tile width and shared
-memory.
+each kernel with a plain ``extern "C"`` launcher.  The kernels are
+built per slot class (``SLOT_CLASSES``): a class's library takes values
+of up to its capacity in slots, and a tensor of S slots runs on the
+smallest class that holds S.  The factorization units are compiled once
+for each R (registers per value) of the class, the elementwise unit
+once, all with ``nvcc`` at first use and all at once, and linked into
+one shared library per class (``csrc/build/``, keyed by sources, flags
+and class) called through ``ctypes``; no PyTorch header is involved.
+``chol_geometry`` and ``solve_geometry`` choose each launch's warps,
+tile width and shared memory.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device; it never falls back from one
@@ -40,13 +44,18 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("limb.cuh", "limb_warp.cuh", "limb_chol.cu", "limb_solve.cu",
            "limb_elementwise.cu")
-UNITS = ("limb_chol.cu", "limb_solve.cu", "limb_elementwise.cu")
+# Compiled once per R of the class (-DLIMB_R), and once per class.
+PER_R_UNITS = ("limb_chol.cu", "limb_solve.cu")
+CLASS_UNITS = ("limb_elementwise.cu",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
-# Largest slot count S the kernels hold per element (csrc/limb.cuh
-# kMaxSlots); --precision 1024 needs S = 116.
-MAX_SLOTS = 128
+# Slot classes: the capacity (csrc/limb.cuh kMaxSlots) of each library
+# that build() makes.  --precision 1024 needs S = 116, 2048 S = 230 and
+# 4096 S = 458; the largest class, 512 slots, takes --precision 4590.
+SLOT_CLASSES = (128, 256, 512)
+MAX_SLOTS = SLOT_CLASSES[-1]
+MIN_SLOTS = 4
 
 # Launch geometry of the factorization kernels (csrc/limb_chol.cu,
 # csrc/limb_solve.cu): the card's SMs, the shared memory one block may
@@ -57,15 +66,15 @@ MAX_SLOTS = 128
 SMS = 132
 SMEM_LIMIT = 232_448
 ROW_PAD = 4
-CHOL_WARPS = {1: 32, 2: 16, 3: 16, 4: 8, 5: 8}
+CHOL_WARPS = {R: 32 if R == 1 else 16 if R <= 3 else 8
+              for R in range(1, (MAX_SLOTS + 34) // 32 + 1)}
 SOLVE_WARPS = 8
 SOLVE_MAX_TILE = 4
 
 LAUNCHES = {"cholesky_unblocked_batched": 0, "solve_unblocked_batched": 0,
             "limb_add": 0, "limb_mul": 0, "limb_div": 0}
 
-_LIB = None
-BUILD_INFO: dict = {}
+_LIBS: dict = {}
 
 
 def reset_launches() -> None:
@@ -81,88 +90,154 @@ def _nvcc() -> str:
     return "nvcc"
 
 
-def build(force: bool = False) -> dict:
-    """Compile the kernels into ``csrc/build/`` unless a library built
-    from the same sources exists: one ``nvcc -c`` per unit, all started
-    together, then one link.  Returns the build record (seconds, the
-    ``-Xptxas -v`` resource lines, the library path)."""
+def slot_class(S: int) -> tuple:
+    """(smallest, largest) slot count of the smallest class that holds
+    S slots; ValueError above the largest class."""
+    _check_slots("slot_class", S)
+    i = next(i for i, cap in enumerate(SLOT_CLASSES) if S <= cap)
+    return (SLOT_CLASSES[i - 1] + 1 if i else MIN_SLOTS), SLOT_CLASSES[i]
+
+
+def _library_path(cap: int) -> Path:
+    lo = slot_class(cap)[0]
     digest = hashlib.sha256()
     for name in SOURCES:
         digest.update((CSRC / name).read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    tag = digest.hexdigest()[:16]
-    lib = BUILD_DIR / f"liblimb_kernels_{tag}.so"
-    if lib.exists() and not force:
-        return {"library": str(lib), "seconds": 0.0, "ptxas": [],
-                "cached": True}
+    digest.update(" ".join(NVCC_FLAGS + _class_flags(lo, cap)).encode())
+    return BUILD_DIR / f"liblimb_kernels_{cap}_{digest.hexdigest()[:16]}.so"
+
+
+def _class_flags(lo: int, cap: int) -> list:
+    return [f"-DLIMB_MIN_SLOTS={lo}", f"-DLIMB_MAX_SLOTS={cap}"]
+
+
+def class_regs(cap: int) -> range:
+    """The R of the values a class holds."""
+    lo = slot_class(cap)[0]
+    return range(value_regs(lo), value_regs(cap) + 1)
+
+
+def _objects(cap: int) -> list:
+    """(object stem, source, extra flags) of each compilation of a
+    class: every per-R unit for each R (the lowest R's object also
+    carrying the class's entry points), and the per-class units."""
+    regs = class_regs(cap)
+    out = []
+    for unit in PER_R_UNITS:
+        for R in regs:
+            extra = [f"-DLIMB_R={R}"] + (["-DLIMB_CLASS_ENTRIES"]
+                                         if R == regs[0] else [])
+            out.append((f"{Path(unit).stem}_r{R}", unit, extra))
+    for unit in CLASS_UNITS:
+        out.append((Path(unit).stem, unit, []))
+    return out
+
+
+def build(classes=SLOT_CLASSES, force: bool = False) -> dict:
+    """Compile the kernels of each slot class in ``classes`` into
+    ``csrc/build/`` unless a library built from the same sources, flags
+    and class exists: one ``nvcc -c`` per object (``_objects``) and
+    class, all started together, then one link per class.  Returns
+    {class: build record} (seconds, the ``-Xptxas -v`` resource lines,
+    the library path)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pid = os.getpid()
     t0 = time.time()
-    objs, procs = [], []
-    for unit in UNITS:
-        obj = BUILD_DIR / f"{Path(unit).stem}_{tag}.{pid}.o"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
-               str(CSRC / unit)]
-        objs.append(obj)
-        procs.append((cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    lines = []
-    for cmd, proc in procs:
-        out, err = proc.communicate()
+    out, jobs = {}, {}
+    for cap in classes:
+        lib = _library_path(cap)
+        if lib.exists() and not force:
+            out[cap] = {"library": str(lib), "seconds": 0.0, "ptxas": [],
+                        "cached": True}
+            continue
+        flags = NVCC_FLAGS + _class_flags(slot_class(cap)[0], cap)
+        jobs[cap] = []
+        for stem, unit, extra in _objects(cap):
+            obj = BUILD_DIR / f"{stem}_{cap}.{pid}.o"
+            cmd = [_nvcc(), *flags, *extra, "-Xptxas", "-v", "-c", "-o",
+                   str(obj), str(CSRC / unit)]
+            jobs[cap].append((obj, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+    failure = None
+    for cap, units in jobs.items():
+        lines = []
+        for obj, cmd, proc in units:
+            stdout, err = proc.communicate()
+            if proc.returncode != 0 and failure is None:
+                failure = (f"nvcc failed ({proc.returncode}) building the "
+                           f"limb kernels (class {cap}):\n{' '.join(cmd)}"
+                           f"\n{stdout}\n{err}")
+            lines += [ln.strip() for ln in err.splitlines()
+                      if re.search(r"registers|spill|Compiling entry|"
+                                   r"stack frame", ln)]
+        out[cap] = {"ptxas": lines}
+    if failure is not None:
+        for units in jobs.values():
+            for obj, _, _ in units:
+                obj.unlink(missing_ok=True)
+        raise RuntimeError(failure)
+    for cap, units in jobs.items():
+        lib = _library_path(cap)
+        tmp = lib.with_suffix(f".{pid}.tmp")
+        cmd = [_nvcc(), "-shared", "-o", str(tmp),
+               *(str(obj) for obj, _, _ in units)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        for obj, _, _ in units:
+            obj.unlink(missing_ok=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building the limb kernels:"
-                f"\n{' '.join(cmd)}\n{out}\n{err}")
-        lines += [ln.strip() for ln in err.splitlines()
-                  if re.search(r"registers|spill|Compiling entry|stack frame",
-                               ln)]
-    tmp = lib.with_suffix(f".{pid}.tmp")
-    cmd = [_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    for obj in objs:
-        obj.unlink(missing_ok=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib)
-    return {"library": str(lib), "seconds": time.time() - t0,
-            "ptxas": lines, "cached": False}
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, lib)
+        out[cap].update(library=str(lib), seconds=time.time() - t0,
+                        cached=False)
+    return out
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        info = build()
-        BUILD_INFO.update(info)
-        lib = ctypes.CDLL(info["library"])
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.chol_unblocked_launch.argtypes = [vp, vp, ci, ci, ci, ci, ci,
-                                              vp]
-        lib.chol_unblocked_launch.restype = ci
-        lib.solve_unblocked_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci,
-                                               ci, ci, ci, ci, vp]
-        lib.solve_unblocked_launch.restype = ci
-        lib.limb_elementwise_launch.argtypes = [vp, vp, vp, ctypes.c_long,
-                                                ci, ci, vp]
-        lib.limb_elementwise_launch.restype = ci
-        lib.limb_max_slots.restype = ci
-        lib.limb_chol_smem_bytes.argtypes = [ci, ci, ci]
-        lib.limb_chol_smem_bytes.restype = ci
-        lib.limb_solve_smem_bytes.argtypes = [ci, ci, ci, ci]
-        lib.limb_solve_smem_bytes.restype = ci
-        if lib.limb_max_slots() != MAX_SLOTS:
-            raise RuntimeError("limb kernel library disagrees on MAX_SLOTS")
-        for n, S in ((7, 26), (32, 47), (64, 116), (64, MAX_SLOTS)):
-            chol = chol_geometry(n, S)
-            solve = solve_geometry(1, n, 40, S)
-            if (lib.limb_chol_smem_bytes(n, S, chol["warps"]) != chol["smem"]
-                    or lib.limb_solve_smem_bytes(n, solve["tm"], S,
-                                                 solve["warps"])
-                    != solve["smem"]):
-                raise RuntimeError("limb kernel library disagrees on the "
-                                   "shared-memory layout")
-        _LIB = lib
-    return _LIB
+def _lib(S: int):
+    """The loaded library of the slot class that holds S, built at
+    first use."""
+    lo, cap = slot_class(S)
+    if cap in _LIBS:
+        return _LIBS[cap]
+    lib = ctypes.CDLL(build(classes=(cap,))[cap]["library"])
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for R in class_regs(cap):
+        fn = getattr(lib, f"chol_unblocked_launch_r{R}")
+        fn.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
+        fn.restype = ci
+        fn = getattr(lib, f"solve_unblocked_launch_r{R}")
+        fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
+        fn.restype = ci
+    lib.limb_elementwise_launch.argtypes = [vp, vp, vp, ctypes.c_long,
+                                            ci, ci, vp]
+    lib.limb_elementwise_launch.restype = ci
+    lib.limb_min_slots.restype = ci
+    lib.limb_max_slots.restype = ci
+    lib.limb_chol_warps.argtypes = [ci]
+    lib.limb_chol_warps.restype = ci
+    lib.limb_chol_smem_bytes.argtypes = [ci, ci, ci]
+    lib.limb_chol_smem_bytes.restype = ci
+    lib.limb_solve_smem_bytes.argtypes = [ci, ci, ci, ci]
+    lib.limb_solve_smem_bytes.restype = ci
+    if (lib.limb_min_slots(), lib.limb_max_slots()) != (lo, cap):
+        raise RuntimeError(f"limb kernel library of class {cap} was built "
+                           f"for {lib.limb_min_slots()}.."
+                           f"{lib.limb_max_slots()} slots")
+    for n, s in ((7, lo), (32, (lo + cap) // 2), (64, cap)):
+        chol = chol_geometry(n, s)
+        solve = solve_geometry(1, n, 40, s)
+        if (lib.limb_chol_warps(s) != chol["warps"]
+                or lib.limb_chol_smem_bytes(n, s, chol["warps"])
+                != chol["smem"]
+                or lib.limb_solve_smem_bytes(n, solve["tm"], s,
+                                             solve["warps"])
+                != solve["smem"]):
+            raise RuntimeError("limb kernel library disagrees on the "
+                               "launch geometry")
+    _LIBS[cap] = lib
+    return lib
 
 
 def _on_cuda(name, *tensors):
@@ -179,11 +254,20 @@ def _on_cuda(name, *tensors):
     return dev.type == "cuda"
 
 
+def max_precision_bits() -> int:
+    """The largest --precision whose values the kernels hold (its
+    limbs and the guard limb fill MAX_SLOTS)."""
+    return limb.B * (MAX_SLOTS - 2)
+
+
 def _check_slots(name, S):
+    if S < MIN_SLOTS:
+        raise ValueError(f"{name}: S={S} below the format's minimum of "
+                         f"{MIN_SLOTS}")
     if S > MAX_SLOTS:
         raise ValueError(
             f"{name}: S={S} slots exceeds the CUDA kernels' limit of "
-            f"{MAX_SLOTS} (precision {limb.precision_bits(MAX_SLOTS)} bits)")
+            f"{MAX_SLOTS} (--precision {max_precision_bits()})")
 
 
 def value_regs(S: int) -> int:
@@ -289,7 +373,8 @@ def solve_unblocked_batched(l, b, inv_d, transpose: bool = False):
     out = torch.empty_like(b)
     if out.numel() == 0:
         return out
-    err = _lib().solve_unblocked_launch(
+    launch = getattr(_lib(S), f"solve_unblocked_launch_r{value_regs(S)}")
+    err = launch(
         l.data_ptr(), b.data_ptr(), inv_d.data_ptr(), out.data_ptr(),
         BB, n, m, S, geo["tm"], int(transpose), geo["warps"],
         torch.cuda.current_stream(b.device).cuda_stream)
@@ -340,7 +425,8 @@ def cholesky_unblocked_batched(a):
     out = torch.empty_like(a)
     if out.numel() == 0:
         return out
-    err = _lib().chol_unblocked_launch(
+    launch = getattr(_lib(S), f"chol_unblocked_launch_r{value_regs(S)}")
+    err = launch(
         a.data_ptr(), out.data_ptr(), BB, n, S,
         limb.newton_steps(S - 1), geo["warps"],
         torch.cuda.current_stream(a.device).cuda_stream)
@@ -364,8 +450,6 @@ def _elementwise(name, a, b, plain):
                          f"{b.shape[-1]}")
     S = a.shape[-1]
     _check_slots(name, S)
-    if S < 4:
-        raise ValueError(f"{name}: S={S} below the format's minimum of 4")
     batch = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
     a = a.expand(batch + (S,)).contiguous()
     b = b.expand(batch + (S,)).contiguous()
@@ -373,7 +457,7 @@ def _elementwise(name, a, b, plain):
     n = out.numel() // S
     if n == 0:
         return out
-    err = _lib().limb_elementwise_launch(
+    err = _lib(S).limb_elementwise_launch(
         a.data_ptr(), b.data_ptr(), out.data_ptr(), n, S, _OPS[name],
         torch.cuda.current_stream(a.device).cuda_stream)
     _status(name, err)

@@ -156,13 +156,11 @@ def raw_to_limbs(raw, k: int):
     return out
 
 
-def bucketed_problem_from_raw(raw, k: int, device) -> BucketedProblem:
-    """RawSDP (io/sdp_json.py) -> limb BucketedProblem on ``device``:
-    blocks grouped by shape, in first-appearance order (sdpb_tpu's
-    ``problem_from_raw`` followed by ``bucketize``)."""
-    lraw = raw_to_limbs(raw, k)
+def group_blocks(raw) -> dict:
+    """{BlockShape: [block indices]} of a RawSDP, in first-appearance
+    order (sdpb_tpu's ``bucketize``)."""
     groups: dict = {}
-    for j, rb in enumerate(lraw.blocks):
+    for j, rb in enumerate(raw.blocks):
         shape = block_shape_of(rb.dim, rb.num_points)
         if (rb.bilinear_bases_even.shape[0], rb.bilinear_bases_odd.shape[0]) \
                 != (shape.he, shape.ho):
@@ -171,6 +169,15 @@ def bucketed_problem_from_raw(raw, k: int, device) -> BucketedProblem:
                              f"{rb.bilinear_bases_odd.shape[0]} do not fit "
                              f"{rb.num_points} points")
         groups.setdefault(shape, []).append(j)
+    return groups
+
+
+def bucketed_problem_from_raw(raw, k: int, device) -> BucketedProblem:
+    """RawSDP (io/sdp_json.py) -> limb BucketedProblem on ``device``:
+    blocks grouped by shape, in first-appearance order (sdpb_tpu's
+    ``problem_from_raw`` followed by ``bucketize``)."""
+    groups = group_blocks(raw)
+    lraw = raw_to_limbs(raw, k)
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
     buckets = []
     for shape, idxs in groups.items():

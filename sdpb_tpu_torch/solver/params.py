@@ -12,19 +12,7 @@ import numpy as np
 
 from ..mp import decimal as mpdec
 from ..mp import limb
-
-
-def parse_bytes(text: str) -> int:
-    """'100.1K' / '2G' / '12345' -> bytes (the reference's
-    --maxSharedMemory syntax); 0 means no cap."""
-    s = str(text).strip()
-    if not s:
-        return 0
-    mult = {"K": 1 << 10, "M": 1 << 20, "G": 1 << 30, "T": 1 << 40}
-    unit = s[-1].upper()
-    if unit in mult:
-        return int(float(s[:-1]) * mult[unit])
-    return int(float(s))
+from .memory import parse_bytes
 
 
 @dataclasses.dataclass(frozen=True)

@@ -186,3 +186,34 @@ def test_geometry_refuses_more_than_max_slots():
             call()
     tk.chol_geometry(64, tk.MAX_SLOTS)
     tk.solve_geometry(1, 64, 32, tk.MAX_SLOTS)
+
+
+# Slot classes above 128 slots (--precision above 1134 bits): the
+# smallest class that holds S, the warps and shared memory of the
+# launches at every n a kernel takes, and the refusal above 512 slots.
+@pytest.mark.parametrize("S, cls", [(4, (4, 128)), (116, (4, 128)),
+                                    (128, (4, 128)), (129, (129, 256)),
+                                    (130, (129, 256)), (230, (129, 256)),
+                                    (256, (129, 256)), (257, (257, 512)),
+                                    (458, (257, 512)), (512, (257, 512))])
+def test_slot_class_and_geometry_up_to_512_slots(S, cls):
+    assert tk.slot_class(S) == cls
+    R = tk.value_regs(S)
+    assert 32 * R >= S + 3 > 32 * (R - 1)
+    for n in range(1, 65):
+        assert tk.chol_geometry(n, S)["smem"] <= tk.SMEM_LIMIT
+        for BB, m in ((1, 1), (1, n), (2, 24), (1, 384)):
+            assert tk.solve_geometry(BB, n, m, S)["smem"] <= tk.SMEM_LIMIT
+
+
+def test_slot_classes_cover_4096_bits_and_refuse_more():
+    assert tl.slots_for_precision(1152) == 130
+    assert tl.slots_for_precision(2048) == 230
+    assert tl.slots_for_precision(4096) == 458
+    assert tk.max_precision_bits() == 4590
+    assert tl.slots_for_precision(tk.max_precision_bits()) == 512
+    for S in (513, tl.slots_for_precision(tk.max_precision_bits() + 1)):
+        with pytest.raises(ValueError, match="--precision 4590"):
+            tk.slot_class(S)
+    with pytest.raises(ValueError):
+        tk.slot_class(3)

@@ -283,6 +283,9 @@ def emu(tmp_path_factory):
     proc = subprocess.run(
         [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-fast-math",
          "-fPIC", "-shared", "-pthread", f"-I{CSRC}", f"-I{d}",
+         # the per-thread ops of the 256-slot class, so that S = 130
+         # (R = 5, --precision 1152) is compared as well
+         "-DLIMB_MAX_SLOTS=256",
          "-Wno-unused-function", str(d / "harness.cpp"), "-o", str(lib)],
         capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -321,7 +324,7 @@ OPS = ("add", "mul", "mul_float", "from_float", "sqrt", "rsqrt",
        "scale_limb_exp")
 
 
-@pytest.mark.parametrize("S", [4, 26, 30, 47, 62, 116, 128])
+@pytest.mark.parametrize("S", [4, 26, 30, 47, 62, 116, 128, 130])
 def test_warp_ops_match_per_thread_ops(emu, S):
     count = 16
     rng = np.random.default_rng(S)
@@ -354,7 +357,8 @@ def _spd(rng, bb, n, S, scale=1.0):
 
 
 @pytest.mark.parametrize("bb,n,S", [(2, 7, 26), (1, 9, 47), (1, 4, 62),
-                                    (1, 5, 116), (1, 3, 128)])
+                                    (1, 5, 116), (1, 3, 128),
+                                    (1, 3, 130)])
 def test_cholesky_kernel_matches_plain(emu, bb, n, S):
     rng = np.random.default_rng(n * S)
     a = _spd(rng, bb + 1, n, S, 1e20)
@@ -369,7 +373,8 @@ def test_cholesky_kernel_matches_plain(emu, bb, n, S):
 
 @pytest.mark.parametrize("bb,n,m,S,tm", [(2, 7, 9, 47, 4), (1, 9, 5, 26, 2),
                                          (1, 6, 3, 116, 1), (1, 5, 3, 128, 2),
-                                         (1, 4, 3, 62, 3)])
+                                         (1, 4, 3, 62, 3),
+                                         (1, 4, 3, 130, 2)])
 def test_solve_kernel_matches_plain(emu, bb, n, m, S, tm):
     rng = np.random.default_rng(n * m * S)
     lfac = lk.cholesky_unblocked_plain(_spd(rng, bb, n, S))
