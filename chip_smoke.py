@@ -8,14 +8,17 @@ Phases, each printing its name and elapsed seconds:
   1. environment: card name and power limit, torch/CUDA versions, mpmath
   2. build: the limb kernels of every slot class (128, 256 and 512
      slots) with nvcc, one process per object, all started together
-     (registers, stack frame and spills per factorization kernel; a
+     (registers, stack frame and spills per kernel instantiation; a
      spill fails the phase)
   3. kernels against their plain PyTorch versions, bit for bit: the
      factorization kernels at the full-width shapes (S = 47, 400 bits)
      and at S = 26 (--precision 212), S = 116 (--precision 1024),
      n = 64 and n = 7, and at S = 130, 230 and 458 (--precision 1152,
-     2048 and 4096); the elementwise kernels at S = 47, 130, 230 and
-     458; CUDA-event times
+     2048 and 4096); the elementwise kernels at the same S, one value
+     at a time, and with one operand broadcast over the batch;
+     CUDA-event times of back-to-back calls, and for the elementwise
+     kernels, whose calls are bound by the host, also the device time
+     of a CUDA graph of the calls
   4. the 1d quickstart SDP end to end through the sdpb CLI entry point
      at the stock contract (--precision 212): PrimalDualOptimal and the
      known objective
@@ -35,7 +38,9 @@ Phases, each printing its name and elapsed seconds:
      Cholesky's time, peak memory against the memory estimate (no more
      than 10% below the peak, here and in phase 5)
 
-The line before the last is one JSON object with a record per kernel;
+The line before the last is one JSON object with a record per kernel
+(``ms``: CUDA events around back-to-back calls; ``device_ms``: the CUDA
+graph's time, elementwise kernels only, else null);
 the last line is {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero.  Needs a CUDA device; exits 1 without one.
 """
@@ -80,6 +85,25 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time of one call: ``reps`` calls captured in a CUDA graph,
+    the graph replayed and timed with CUDA events.  For short kernels
+    whose back-to-back calls are bound by the host (the wrapper takes
+    tens of microseconds), where cuda_ms times the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return cuda_ms(graph.replay, 3) / reps
 
 
 def spd_limbs(rng, bb, n, S, dev, scale=1.0):
@@ -144,22 +168,24 @@ def phase_build():
                 spills.append((cap, name, res))
         lk._lib(cap)
     if spills:
-        raise AssertionError(f"factorization kernels spill: {spills}")
+        raise AssertionError(f"kernels spill: {spills}")
     phase("2 build", t)
 
 
 def _ptxas_resources(lines):
-    """Registers, stack frame and spill bytes per factorization kernel
-    instantiation, read from the -Xptxas -v lines."""
+    """Registers, stack frame and spill bytes per kernel instantiation
+    (template arguments R, W and, for the elementwise kernel, the op),
+    read from the -Xptxas -v lines."""
     out, cur = {}, None
     for line in lines:
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
-            k = re.search(r"(chol_warp|solve_warp)_kernelILi(\d+)ELi(\d+)E",
-                          m.group(1))
-            cur = f"{k.group(1)}_kernel<{k.group(2)},{k.group(3)}>" \
-                if k else None
+            k = re.search(r"(chol_warp|solve_warp|elementwise_warp)_kernel"
+                          r"I((?:Li\d+E)+)E", m.group(1))
+            cur = (f"{k.group(1)}_kernel<"
+                   + ",".join(re.findall(r"Li(\d+)E", k.group(2))) + ">"
+                   if k else None)
             continue
         if cur is None:
             continue
@@ -228,6 +254,11 @@ SOLVE_SHAPES = ((272, 32, 32, 47), (48, 32, 96, 47), (1, 32, 384, 47),
                 (1, 64, 8, 116), (5, 7, 9, 47)) + tuple(
     (2, 32, 24, S) for S in HIGH_SLOTS)
 FULL_WIDTH = 3
+# Elementwise (values, S): one full-width trailing update (48 x 32 x 32
+# values at S = 47, the first shape, the one on the main path), then
+# 4096 values at the other S.
+ELEMENTWISE_SHAPES = ((48 * 32 * 32, 47), (4096, 26), (4096, 116)) + tuple(
+    (4096, S) for S in HIGH_SLOTS)
 
 
 def bound_ms(nbytes, ops):
@@ -323,9 +354,8 @@ def phase_kernels(dev):
                 dict(shape=[bb, n, m, S, int(transpose)], err=0.0, ms=ms,
                      plain_ms=plain_ms, main=idx < FULL_WIDTH,
                      bytes=nbytes, ops=ops))
-    for S in (47,) + HIGH_SLOTS:
-        for name, recs in _elementwise_checks(
-                dev, rng, S, n=48 * 32 * 32 if S == 47 else 4096).items():
+    for n, S in ELEMENTWISE_SHAPES:
+        for name, recs in _elementwise_checks(dev, rng, S, n).items():
             rows.setdefault(name, []).extend(recs)
     phase("3 kernels vs plain", t)
     return rows
@@ -353,18 +383,29 @@ def _random_limbs(rng, n, S, dev):
     return torch.from_numpy(x).to(dev)
 
 
-def _elementwise_checks(dev, rng, S, n):
-    """limb_add/mul/div against their plain versions, bit for bit, at
-    the size of one full-width trailing update (48 x 32 x 32 values at
-    S = 47) or at 4096 values."""
-    import torch
+def _check_same(name, got, want):
+    if not same_bits(got, want):
+        bad = (got.nan_to_num(0.0) != want.nan_to_num(0.0)).any(-1) | (
+            got.isnan() != want.isnan()).any(-1)
+        i = int(bad.reshape(-1).nonzero()[0, 0])
+        got, want = got.reshape(-1, got.shape[-1]), want.reshape(
+            -1, want.shape[-1])
+        raise AssertionError(f"{name} differs from its plain version at "
+                             f"{i}: {got[i].tolist()} vs {want[i].tolist()}")
 
+
+def _elementwise_checks(dev, rng, S, n):
+    """limb_add/mul/div against their plain versions, bit for bit, on n
+    random values with special ones among them: b value by value, b's
+    first value broadcast over the batch (read in place, batch stride
+    0), and the first 9 values one launch each (n = 1)."""
     from sdpb_tpu_torch.mp import limb
     from sdpb_tpu_torch.ops import limb_kernels as lk
 
     L = S - 1
     a = _random_limbs(rng, n, S, dev)
     b = _random_limbs(rng, n, S, dev)
+    b1 = b[:1]
     # float additions / the convolution's multiply-adds / the L + 2
     # quotient digits' multiply-subtracts; carry passes not counted
     per_op = {"limb_add": L, "limb_mul": _mul_flops(L),
@@ -373,21 +414,30 @@ def _elementwise_checks(dev, rng, S, n):
     for name, kern, plain in (("limb_add", lk.limb_add, limb.add_plain),
                               ("limb_mul", lk.limb_mul, limb.mul_plain),
                               ("limb_div", lk.limb_div, limb.div_plain)):
-        got = kern(a, b)
-        want, plain_ms = timed_once(lambda: plain(a, b))
-        if not same_bits(got, want):
-            bad = (got.nan_to_num(0.0) != want.nan_to_num(0.0)).any(-1)
-            i = int(bad.nonzero()[0, 0])
-            raise AssertionError(f"{name} differs from its plain version "
-                                 f"at {i}: {got[i].tolist()} vs "
-                                 f"{want[i].tolist()}")
-        ms = cuda_ms(lambda: kern(a, b), 5)
-        nbytes, ops = 3 * n * S * 4, n * per_op[name]
-        print(f"{name} ({n},{S}): bit-exact  kernel {ms:.3f} ms  plain "
-              f"{plain_ms:.3f} ms  bound %.5f ms (%s)" % bound_ms(nbytes, ops),
-              flush=True)
-        rows[name] = [dict(shape=[n, S], err=0.0, ms=ms, plain_ms=plain_ms,
-                           bytes=nbytes, ops=ops, main=S == 47)]
+        for i in range(9):
+            _check_same(f"{name} (1,{S}) value {i}",
+                        kern(a[i:i + 1], b[i:i + 1]),
+                        plain(a[i:i + 1], b[i:i + 1]))
+        for label, y, nb in (("", b, n), (" b broadcast", b1, 1)):
+            got = kern(a, y)
+            want, plain_ms = timed_once(lambda: plain(a, y))
+            _check_same(f"{name} ({n},{S}){label}", got, want)
+            ms = cuda_ms(lambda: kern(a, y), 5)
+            dev_ms = device_ms(lambda: kern(a, y), 5)
+            nbytes, ops = (2 * n + nb) * S * 4, n * per_op[name]
+            print(f"{name} ({n},{S}){label}: bit-exact  kernel {ms:.4f} ms "
+                  f"(device {dev_ms:.4f} ms)  plain {plain_ms:.3f} "
+                  f"ms  bound %.5f ms (%s)" % bound_ms(nbytes, ops),
+                  flush=True)
+            rows.setdefault(name, []).append(dict(
+                shape=[n, S], err=0.0, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                main=(n, S) == ELEMENTWISE_SHAPES[0] and nb == n))
+        call1 = cuda_ms(lambda: kern(a[:1], b1), 20)
+        dev1 = device_ms(lambda: kern(a[:1], b1), 5)
+        print(f"{name} (1,{S}): bit-exact on values 0..8  kernel {call1:.4f} "
+              f"ms (device {dev1:.4f} ms)  bound %.6f ms (%s)"
+              % bound_ms(3 * S * 4, per_op[name]), flush=True)
     return rows
 
 
@@ -531,7 +581,8 @@ def phase_full(dev, iterations=1):
 LIMB_KERNELS = (
     ("cholesky_unblocked_batched", r"\(anonymous namespace\)::chol_warp_kernel<"),
     ("solve_unblocked_batched", r"\(anonymous namespace\)::solve_warp_kernel<"),
-    ("limb_elementwise", r"\(anonymous namespace\)::elementwise_kernel\("),
+    ("limb_elementwise",
+     r"\(anonymous namespace\)::elementwise_warp_kernel<"),
 )
 PROFILE_CLASSES = (
     ("limb_kernels", "|".join(pat for _, pat in LIMB_KERNELS)),
@@ -820,7 +871,8 @@ def kernel_json(rows, paths):
             "source": sources[name],
             "replaces": meta[name], "launches": launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in recs),
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "ms": rec["ms"], "device_ms": rec.get("device_ms"),
+            "plain_ms": rec["plain_ms"],
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None, "shape": rec["shape"],
             "launches_by_path": {p: n.get(name, 0)

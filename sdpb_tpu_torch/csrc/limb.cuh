@@ -1,5 +1,8 @@
-// Base-2^9 limb arithmetic as device functions, one MP value per thread,
-// for limb_elementwise.cu.  One MP value is a float array of S = 1 + L slots:
+// Base-2^9 limb arithmetic as device functions, one MP value per thread:
+// the reference that the warp operations of limb_warp.cuh are held to
+// bit for bit (tests/test_torch_warp_emulation.py), and the constants and
+// scalar steps they share.  One MP value is a float array of S = 1 + L
+// slots:
 //
 //   slot 0   exponent code x0, e = |x0| - EOFF in limb units
 //   slot i   limb l_i, an integer-valued float, balanced (|l_i| <~ 270)

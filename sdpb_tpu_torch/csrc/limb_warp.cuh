@@ -1,5 +1,6 @@
 // Base-2^9 limb arithmetic with one MP value per warp, for the
-// factorization kernels in limb_chol.cu and limb_solve.cu.
+// factorization kernels in limb_chol.cu and limb_solve.cu and the
+// elementwise add, mul and div in limb_elementwise.cu.
 //
 // The format is limb.cuh's (slot 0 the exponent code, slots 1..L the
 // balanced integer limbs).  Here a value of S slots lives in the
@@ -24,9 +25,9 @@
 //   the limbs are all zero and whether one is not finite (one warp
 //   or-reduction; limb.cuh's 0 * sum gives NaN exactly then).
 // - The rounded scalar steps (the float32 mantissa estimate, the rsqrt
-//   seed, float_limbs) take warp-uniform inputs and are computed by
-//   every lane with limb.cuh's own code, so each lane gets the same bits
-//   and nothing has to be broadcast.
+//   seed, float_limbs, a division's digit estimate) take warp-uniform
+//   inputs and are computed by every lane with limb.cuh's own code, so
+//   each lane gets the same bits and nothing has to be broadcast.
 // The unit is compiled with -fmad=false like limb.cuh.
 //
 // Every function here must be called by all 32 lanes of a warp with
@@ -448,6 +449,94 @@ __device__ __forceinline__ float mant3(const V<R>& a, const Ctx& c) {
   if (c.L > 1) m = __fadd_rn(m, __fmul_rn(l2, kInvBeta));
   if (c.L > 2) m = __fadd_rn(m, __fmul_rn(l3, kInvBeta2));
   return m;
+}
+
+// Slot s + 1 of x in the lane that holds slot s, zero past the last
+// register: one shuffle per register, lane 31 taking lane 0's value of
+// the next register.
+template <int R>
+__device__ __forceinline__ V<R> next_slot(const V<R>& x, const Ctx& c) {
+  float rot[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+    rot[j] = __shfl_sync(kFull, x.v[j], (c.lane + 1) & 31);
+  V<R> y;
+#pragma unroll
+  for (int j = 0; j < R; ++j)
+    y.v[j] = c.lane < 31 ? rot[j] : (j + 1 < R ? rot[j + 1] : 0.0f);
+  return y;
+}
+
+// a / b by long division with redundant balanced quotient digits
+// (limb::div).  The remainder's r_i sits in slot i + 1 beside the
+// divisor's limb l_i, in registers; slot 0 and the slots past L are held
+// at zero.  Each of the L + 2 digits: the warp-uniform estimate from
+// slots 1..3 (every lane computes it with limb.cuh's expression), r - q l
+// in every lane, the carry pass that keeps slot 1 as a wide head (new
+// r_i = r_i - 512 q_i + q_{i+1}, from the right neighbour's carry read
+// before the pass), and the one-slot shift that folds the head down
+// (another read of the right neighbour): 2 R + 3 shuffles a digit.
+// Digit d lands in slot 2 + d of the product-length value that renorm
+// turns into the result.
+template <int R>
+__device__ __forceinline__ V<R> div(const V<R>& a, const V<R>& b,
+                                    const Ctx& c) {
+  const float a0 = slot0(a), b0 = slot0(b);
+  if (!isfinite(a0) || !isfinite(b0)) return nan_value<R>(c);
+  const int L = c.L;
+  const bool azero = limbs_zero(a, c);
+  if (limbs_zero(b, c)) {
+    // +-inf (the sign of a's first limb) over a zero divisor, 0/0 NaN
+    V<R> out = nan_value<R>(c);
+    const float a1 = __shfl_sync(kFull, a.v[0], 1);
+    if (!azero && c.lane == 1) out.v[0] = a1 < 0.0f ? -INFINITY : INFINITY;
+    return out;
+  }
+  bool valid[R];
+  V<R> r, lb;
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int s = 32 * j + c.lane;
+    valid[j] = s >= 1 && s <= L;
+    r.v[j] = valid[j] ? a.v[j] : 0.0f;
+    lb.v[j] = valid[j] ? b.v[j] : 0.0f;
+  }
+  const float bhat = mant3(b, c);
+  const float inv_bhat = (bhat == 0.0f) ? INFINITY : __fdiv_rn(1.0f, bhat);
+  V<R> ext = zero_value<R>();
+  for (int d = 0; d < L + 2; ++d) {
+    const float r0 = __shfl_sync(kFull, r.v[0], 1);
+    const float r1 = __shfl_sync(kFull, r.v[0], 2);
+    const float r2 = __shfl_sync(kFull, r.v[0], 3);
+    const float rhat = __fadd_rn(__fadd_rn(r0, __fmul_rn(r1, kInvBeta)),
+                                 __fmul_rn(r2, kInvBeta2));
+    const float q = rintf(__fmul_rn(rhat, inv_bhat));
+    V<R> cq;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (valid[j]) r.v[j] = __fsub_rn(r.v[j], __fmul_rn(q, lb.v[j]));
+      cq.v[j] = valid[j] ? rintf(__fmul_rn(r.v[j], kInvBeta)) : 0.0f;
+    }
+    const V<R> qn = next_slot(cq, c);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const bool head = j == 0 && c.lane == 1;   // slot 1 carries nothing
+      if (valid[j])
+        r.v[j] = __fadd_rn(__fsub_rn(r.v[j], __fmul_rn(head ? 0.0f : cq.v[j],
+                                                       kBeta)),
+                           qn.v[j]);
+    }
+    const V<R> rn = next_slot(r, c);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const bool head = j == 0 && c.lane == 1;
+      if (valid[j])
+        r.v[j] = head ? __fadd_rn(rn.v[j], __fmul_rn(r.v[j], kBeta))
+                      : rn.v[j];
+      if (32 * j + c.lane == 2 + d) ext.v[j] = q;
+    }
+  }
+  return renorm<3>(expo0(a0) - expo0(b0) + 2, ext, L + 4, c);
 }
 
 // (sqrt(a), 1/sqrt(a)) (limb::sqrt_rsqrt): Newton on 1/sqrt from the

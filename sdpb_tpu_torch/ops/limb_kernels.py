@@ -6,20 +6,21 @@ the two Pallas TPU kernels of the JAX package
 (``sdpb_tpu/ops/limb_kernels.py``); ``limb_add``, ``limb_mul`` and
 ``limb_div`` run one MP operation per launch where the JAX package
 leaves the elementwise limb arithmetic to XLA fusions.  The CUDA sources
-are ``csrc/limb.cuh`` (the limb arithmetic per thread),
-``csrc/limb_warp.cuh`` (the same arithmetic with one value per warp),
-``csrc/limb_chol.cu`` and ``csrc/limb_solve.cu`` (the two factorization
-kernels, one MP operation per warp) and ``csrc/limb_elementwise.cu``,
-each kernel with a plain ``extern "C"`` launcher.  The kernels are
-built per slot class (``SLOT_CLASSES``): a class's library takes values
-of up to its capacity in slots, and a tensor of S slots runs on the
-smallest class that holds S.  The factorization units are compiled once
-for each R (registers per value) of the class, the elementwise unit
-once, all with ``nvcc`` at first use and all at once, and linked into
-one shared library per class (``csrc/build/``, keyed by sources, flags
-and class) called through ``ctypes``; no PyTorch header is involved.
-``chol_geometry`` and ``solve_geometry`` choose each launch's warps,
-tile width and shared memory.
+are ``csrc/limb.cuh`` (the limb arithmetic per thread, the reference
+of the warp operations), ``csrc/limb_warp.cuh`` (the same arithmetic
+with one value per warp), ``csrc/limb_chol.cu`` and
+``csrc/limb_solve.cu`` (the two factorization kernels, one MP operation
+per warp) and ``csrc/limb_elementwise.cu`` (add, mul and div, one value
+per warp), each kernel with a plain ``extern "C"`` launcher.  The
+kernels are built per slot class (``SLOT_CLASSES``): a class's library
+takes values of up to its capacity in slots, and a tensor of S slots
+runs on the smallest class that holds S.  Every unit is compiled once
+for each R (registers per value) of the class, all with ``nvcc`` at
+first use and all at once, and linked into one shared library per
+class (``csrc/build/``, keyed by sources, flags and class) called
+through ``ctypes``; no PyTorch header is involved.  ``chol_geometry``,
+``solve_geometry`` and ``elementwise_geometry`` choose each launch's
+warps, grid, tile width and shared memory.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device; it never falls back from one
@@ -44,9 +45,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("limb.cuh", "limb_warp.cuh", "limb_chol.cu", "limb_solve.cu",
            "limb_elementwise.cu")
-# Compiled once per R of the class (-DLIMB_R), and once per class.
-PER_R_UNITS = ("limb_chol.cu", "limb_solve.cu")
-CLASS_UNITS = ("limb_elementwise.cu",)
+# Each unit is compiled once per R of the class (-DLIMB_R).
+PER_R_UNITS = ("limb_chol.cu", "limb_solve.cu", "limb_elementwise.cu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
@@ -70,6 +70,9 @@ CHOL_WARPS = {R: 32 if R == 1 else 16 if R <= 3 else 8
               for R in range(1, (MAX_SLOTS + 34) // 32 + 1)}
 SOLVE_WARPS = 8
 SOLVE_MAX_TILE = 4
+# The elementwise kernel (csrc/limb_elementwise.cu kElementwiseWarps):
+# four warps a block, one value per warp.
+ELEMENTWISE_WARPS = 4
 
 LAUNCHES = {"cholesky_unblocked_batched": 0, "solve_unblocked_batched": 0,
             "limb_add": 0, "limb_mul": 0, "limb_div": 0}
@@ -119,8 +122,8 @@ def class_regs(cap: int) -> range:
 
 def _objects(cap: int) -> list:
     """(object stem, source, extra flags) of each compilation of a
-    class: every per-R unit for each R (the lowest R's object also
-    carrying the class's entry points), and the per-class units."""
+    class: every unit for each R (the lowest R's object also carrying
+    the class's entry points)."""
     regs = class_regs(cap)
     out = []
     for unit in PER_R_UNITS:
@@ -128,8 +131,6 @@ def _objects(cap: int) -> list:
             extra = [f"-DLIMB_R={R}"] + (["-DLIMB_CLASS_ENTRIES"]
                                          if R == regs[0] else [])
             out.append((f"{Path(unit).stem}_r{R}", unit, extra))
-    for unit in CLASS_UNITS:
-        out.append((Path(unit).stem, unit, []))
     return out
 
 
@@ -202,7 +203,7 @@ def _lib(S: int):
     if cap in _LIBS:
         return _LIBS[cap]
     lib = ctypes.CDLL(build(classes=(cap,))[cap]["library"])
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     for R in class_regs(cap):
         fn = getattr(lib, f"chol_unblocked_launch_r{R}")
         fn.argtypes = [vp, vp, ci, ci, ci, ci, ci, vp]
@@ -210,9 +211,9 @@ def _lib(S: int):
         fn = getattr(lib, f"solve_unblocked_launch_r{R}")
         fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
-    lib.limb_elementwise_launch.argtypes = [vp, vp, vp, ctypes.c_long,
-                                            ci, ci, vp]
-    lib.limb_elementwise_launch.restype = ci
+        fn = getattr(lib, f"limb_elementwise_launch_r{R}")
+        fn.argtypes = [vp, cl, vp, cl, vp, cl, ci, ci, ci, vp]
+        fn.restype = ci
     lib.limb_min_slots.restype = ci
     lib.limb_max_slots.restype = ci
     lib.limb_chol_warps.argtypes = [ci]
@@ -221,6 +222,8 @@ def _lib(S: int):
     lib.limb_chol_smem_bytes.restype = ci
     lib.limb_solve_smem_bytes.argtypes = [ci, ci, ci, ci]
     lib.limb_solve_smem_bytes.restype = ci
+    lib.limb_elementwise_smem_bytes.argtypes = [ci]
+    lib.limb_elementwise_smem_bytes.restype = ci
     if (lib.limb_min_slots(), lib.limb_max_slots()) != (lo, cap):
         raise RuntimeError(f"limb kernel library of class {cap} was built "
                            f"for {lib.limb_min_slots()}.."
@@ -233,7 +236,9 @@ def _lib(S: int):
                 != chol["smem"]
                 or lib.limb_solve_smem_bytes(n, solve["tm"], s,
                                              solve["warps"])
-                != solve["smem"]):
+                != solve["smem"]
+                or lib.limb_elementwise_smem_bytes(s)
+                != elementwise_geometry(1, s)["smem"]):
             raise RuntimeError("limb kernel library disagrees on the "
                                "launch geometry")
     _LIBS[cap] = lib
@@ -313,6 +318,15 @@ def solve_geometry(BB: int, n: int, m: int, S: int) -> dict:
         raise ValueError(f"solve n={n}, S={S} needs {smem} bytes of "
                          f"shared memory (limit {SMEM_LIMIT})")
     return {"tm": tm, "warps": SOLVE_WARPS, "blocks": blocks, "smem": smem}
+
+
+def elementwise_geometry(n: int, S: int) -> dict:
+    """Grid and dynamic shared memory (bytes) of the elementwise kernel
+    for n values of S slots: ELEMENTWISE_WARPS warps a block, a warp for
+    each value (one block for a single value), and each warp's scratch
+    rows."""
+    return {"blocks": max(1, -(-n // ELEMENTWISE_WARPS)),
+            "smem": 4 * _scratch_floats(ELEMENTWISE_WARPS, value_regs(S))}
 
 
 def _status(name, err):
@@ -442,6 +456,17 @@ def cholesky_unblocked_batched(a):
 _OPS = {"limb_add": 0, "limb_mul": 1, "limb_div": 2}
 
 
+def elementwise_operand(x, batch):
+    """(tensor, stride) of one operand for the elementwise kernel: a
+    single value broadcast over the batch is passed as it is, with batch
+    stride 0; any other operand is broadcast to ``batch`` and made
+    contiguous (stride S)."""
+    S = x.shape[-1]
+    if x.numel() == S:
+        return x.reshape(S).contiguous(), 0
+    return x.expand(batch + (S,)).contiguous(), S
+
+
 def _elementwise(name, a, b, plain):
     if not _on_cuda(name, a, b):
         return plain(a, b)
@@ -451,15 +476,17 @@ def _elementwise(name, a, b, plain):
     S = a.shape[-1]
     _check_slots(name, S)
     batch = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
-    a = a.expand(batch + (S,)).contiguous()
-    b = b.expand(batch + (S,)).contiguous()
-    out = torch.empty_like(a)
+    out = torch.empty(batch + (S,), dtype=a.dtype, device=a.device)
     n = out.numel() // S
     if n == 0:
         return out
-    err = _lib(S).limb_elementwise_launch(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), n, S, _OPS[name],
-        torch.cuda.current_stream(a.device).cuda_stream)
+    (a, sa), (b, sb) = (elementwise_operand(a, batch),
+                        elementwise_operand(b, batch))
+    geo = elementwise_geometry(n, S)
+    launch = getattr(_lib(S), f"limb_elementwise_launch_r{value_regs(S)}")
+    err = launch(a.data_ptr(), sa, b.data_ptr(), sb, out.data_ptr(), n, S,
+                 _OPS[name], geo["blocks"],
+                 torch.cuda.current_stream(out.device).cuda_stream)
     _status(name, err)
     LAUNCHES[name] += 1
     return out

@@ -190,6 +190,29 @@ def test_sqrt_rsqrt_recip_div_within_2_ulps():
         axis=-1).all()
 
 
+@pytest.mark.parametrize("k_slots", [14, 47])
+def test_div_recip_bitexact(k_slots):
+    """div and recip against sdpb_tpu bit for bit: the quotient digits
+    come from the same rounded float32 estimate on both sides.  Special
+    values: zero divisors under a zero and a non-zero dividend of each
+    sign, NaN, +-inf, x / x and both ends of the exponent range."""
+    rng = np.random.default_rng(k_slots)
+    a = _rand_limbs(rng, (60,), k_slots, emin=-200, emax=200)
+    b = _rand_limbs(rng, (60,), k_slots, emin=-200, emax=200)
+    one = jl.one(k_slots)
+    inf = jl.from_words_np(np.array([[np.inf, 0.0, 0.0]]), k_slots)[0]
+    a[0], a[1], a[2], b[0:3] = one, -one, 0.0, 0.0
+    a[3], a[4], b[5], b[6] = np.nan, inf, np.nan, -inf
+    a[7] = b[7] = a[8]
+    a[9], b[9] = one, one
+    a[9, 0], b[9, 0] = 2 * jl.EOFF - 2, 1          # overflow
+    a[10], b[10] = one, one
+    a[10, 0], b[10, 0] = 1, 2 * jl.EOFF - 2        # underflow
+    _same(_t(tl.div, a, b), _j(jl.div, a, b))
+    _same(_t(tl.recip, b), _j(jl.recip, b))
+    _same(_t(tl.recip, a), _j(jl.recip, a))
+
+
 def test_digits_and_planes_bitexact():
     rng = np.random.default_rng(6)
     x = _rand_limbs(rng, (5, 7), emin=-40, emax=-1)

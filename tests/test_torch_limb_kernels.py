@@ -217,3 +217,37 @@ def test_slot_classes_cover_4096_bits_and_refuse_more():
             tk.slot_class(S)
     with pytest.raises(ValueError):
         tk.slot_class(3)
+
+
+# The elementwise kernel (csrc/limb_elementwise.cu): one value per warp,
+# four warps a block, a warp for each value; the scratch rows stay under
+# the 48 KB a block gets without opting in, at every S up to 512 slots.
+@pytest.mark.parametrize("S", [4, 26, 29, 47, 116, 128, 130, 230, 256, 257,
+                               458, 512])
+def test_elementwise_geometry_for_every_n(S):
+    R = tk.value_regs(S)
+    for n in (1, 2, 4, 5, 9, 4096, 49152, 10 ** 7):
+        geo = tk.elementwise_geometry(n, S)
+        assert tk.ELEMENTWISE_WARPS == 4
+        assert geo["blocks"] == -(-n // 4)
+        assert geo["smem"] == 4 * 4 * (96 * R + tk.ROW_PAD) <= 48 * 1024
+    assert tk.elementwise_geometry(1, S)["blocks"] == 1
+
+
+def test_elementwise_operand_reads_one_value_in_place():
+    """A single value broadcast over the batch goes to the kernel as it
+    is, with batch stride 0; any other operand is broadcast and made
+    contiguous (stride S), without a copy when it already is."""
+    a = torch.from_numpy(_limbs(np.arange(1.0, 13.0).reshape(3, 4)))
+    batch = (3, 4)
+    for one in (a[1, 2], a[1:2, 2:3], a[1, 2][None, None, None]):
+        x, stride = tk.elementwise_operand(one, batch)
+        assert stride == 0 and x.shape == (S,) and x.is_contiguous()
+        assert torch.equal(x, a[1, 2])
+    x, stride = tk.elementwise_operand(a, batch)
+    assert stride == S and x.data_ptr() == a.data_ptr()
+    x, stride = tk.elementwise_operand(a[:, :1], batch)
+    assert stride == S and x.shape == (3, 4, S) and x.is_contiguous()
+    assert torch.equal(x, a[:, :1].expand(3, 4, S))
+    x, stride = tk.elementwise_operand(a[:, 1], (2, 3))
+    assert stride == S and torch.equal(x, a[:, 1].expand(2, 3, S))

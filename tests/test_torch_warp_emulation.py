@@ -1,17 +1,19 @@
-"""The CUDA factorization kernels' own source, run on the CPU.
+"""The CUDA limb kernels' own source, run on the CPU.
 
-The kernels in sdpb_tpu_torch/csrc/limb_chol.cu and limb_solve.cu (one
-MP operation per warp, limb_warp.cuh) run only on the card.  This test
-compiles their device code with the host C++ compiler against a small
-emulation of the CUDA features they use -- one std::thread per CUDA
-thread, warp shuffles, votes, reductions and barriers through
-std::barrier -- and checks, at small shapes, that:
+The kernels in sdpb_tpu_torch/csrc/limb_chol.cu, limb_solve.cu and
+limb_elementwise.cu (one MP operation per warp, limb_warp.cuh) run only
+on the card.  This test compiles their device code with the host C++
+compiler against a small emulation of the CUDA features they use -- one
+std::thread per CUDA thread, warp shuffles, votes, reductions and
+barriers through std::barrier -- and checks, at small shapes, that:
 
 - every warp operation of limb_warp.cuh gives the same bits as the
   per-thread operation of limb.cuh that it replaces;
 - each kernel gives the same bits as its plain PyTorch version
-  (NaN in the same places), in both orientations for the solve and
-  for a non-positive-definite input for the Cholesky.
+  (NaN in the same places), in both orientations for the solve, for a
+  non-positive-definite input for the Cholesky, and for zero divisors,
+  NaN, +-inf, both ends of the exponent range and an operand broadcast
+  with batch stride 0 for the elementwise add, mul and div.
 
 The emulation checks arithmetic and indexing, not timing or memory
 ordering on the card; chip_smoke.py phase 3 holds the real kernels to
@@ -54,7 +56,7 @@ using std::min;
 #define __restrict__
 #define __launch_bounds__(...)
 struct Dim3 { unsigned x = 0, y = 0, z = 0; };
-inline thread_local Dim3 threadIdx, blockIdx;
+inline thread_local Dim3 threadIdx, blockIdx, gridDim;
 struct WarpSync {
   std::barrier<> bar{32};
   float f[32];
@@ -137,6 +139,8 @@ void run_blocks(int gx, int gy, int threads, size_t smem_floats, F body) {
           threadIdx.x = t;
           blockIdx.x = bx;
           blockIdx.y = by;
+          gridDim.x = gx;
+          gridDim.y = gy;
           body();
         });
       for (auto& th : ts) th.join();
@@ -152,7 +156,7 @@ using limbw::Ctx;
 using limbw::V;
 
 // op: 0 add, 1 mul, 2 mul_float, 3 from_float, 4 sqrt, 5 rsqrt,
-// 6 scale_limb_exp; one warp per value.
+// 6 scale_limb_exp, 7 div; one warp per value.
 template <int R>
 void warp_ops(int op, const float* a, const float* b, const float* xf,
               const int* ix, float* out, int count, int S, int steps) {
@@ -171,7 +175,8 @@ void warp_ops(int op, const float* a, const float* b, const float* xf,
           limbw::sqrt_rsqrt(x, s, r, steps, c);
           o = op == 4 ? s : r;
           break;
-        default: o = limbw::scale_limb_exp(x, ix[i], c);
+        case 6: o = limbw::scale_limb_exp(x, ix[i], c); break;
+        default: o = limbw::div(x, y, c);
       }
       limbw::store(out + i * S, o, c);
     });
@@ -188,6 +193,18 @@ void solve(const float* l, const float* b, const float* d, float* out, int bb,
            int n, int m, int S, int tm, int tr) {
   run_blocks(bb, (m + tm - 1) / tm, W * 32, solve_smem_floats(n, tm, S, W),
              [=] { solve_warp_kernel<R, W>(l, b, d, out, n, m, S, tm, tr); });
+}
+
+template <int R, int W>
+void ew(int op, const float* a, long sa, const float* b, long sb, float* out,
+        long n, int S, int blocks) {
+  run_blocks(blocks, 1, W * 32, elementwise_smem_floats(S), [=] {
+    switch (op) {
+      case 0: elementwise_warp_kernel<R, W, 0>(a, sa, b, sb, out, n, S); break;
+      case 1: elementwise_warp_kernel<R, W, 1>(a, sa, b, sb, out, n, S); break;
+      default: elementwise_warp_kernel<R, W, 2>(a, sa, b, sb, out, n, S);
+    }
+  });
 }
 
 extern "C" {
@@ -219,16 +236,18 @@ int thread_ops(int op, const float* a, const float* b, const float* xf,
       case 3: limb::from_float(xf[i], o, L); break;
       case 4: limb::sqrt_rsqrt(x, o, t.data(), L, steps); break;
       case 5: limb::sqrt_rsqrt(x, t.data(), o, L, steps); break;
-      default:
+      case 6:
         for (int s = 0; s < S; ++s) o[s] = x[s];
         limb::scale_limb_exp(o, ix[i], L);
+        break;
+      default: limb::div(x, y, o, L);
     }
   }
   return 0;
 }
 
-// The (registers, warps) pairs of the launchers in limb_chol.cu and
-// limb_solve.cu.
+// The (registers, warps) pairs of the launchers in limb_chol.cu,
+// limb_solve.cu and limb_elementwise.cu.
 int emu_chol(const float* a, float* out, int bb, int n, int S, int steps,
              int warps) {
   switch (limbw::regs_for(S) * 100 + warps) {
@@ -237,6 +256,19 @@ int emu_chol(const float* a, float* out, int bb, int n, int S, int steps,
     case 316: chol<3, 16>(a, out, bb, n, S, steps); return 0;
     case 408: chol<4, 8>(a, out, bb, n, S, steps); return 0;
     case 508: chol<5, 8>(a, out, bb, n, S, steps); return 0;
+  }
+  return 1;
+}
+
+int emu_elementwise(int op, const float* a, long sa, const float* b, long sb,
+                    float* out, long n, int S, int blocks) {
+  constexpr int W = kElementwiseWarps;
+  switch (limbw::regs_for(S)) {
+    case 1: ew<1, W>(op, a, sa, b, sb, out, n, S, blocks); return 0;
+    case 2: ew<2, W>(op, a, sa, b, sb, out, n, S, blocks); return 0;
+    case 3: ew<3, W>(op, a, sa, b, sb, out, n, S, blocks); return 0;
+    case 4: ew<4, W>(op, a, sa, b, sb, out, n, S, blocks); return 0;
+    case 5: ew<5, W>(op, a, sa, b, sb, out, n, S, blocks); return 0;
   }
   return 1;
 }
@@ -277,7 +309,8 @@ def emu(tmp_path_factory):
     d = tmp_path_factory.mktemp("warp_emulation")
     (d / "shim.h").write_text(SHIM)
     (d / "kernels.inc").write_text(
-        "\n".join(_device_code(n) for n in ("limb_chol.cu", "limb_solve.cu")))
+        "\n".join(_device_code(n) for n in ("limb_chol.cu", "limb_solve.cu",
+                                             "limb_elementwise.cu")))
     (d / "harness.cpp").write_text(HARNESS)
     lib = d / "libemu.so"
     proc = subprocess.run(
@@ -289,7 +322,10 @@ def emu(tmp_path_factory):
          "-Wno-unused-function", str(d / "harness.cpp"), "-o", str(lib)],
         capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    return ctypes.CDLL(str(lib))
+    emu = ctypes.CDLL(str(lib))
+    vp, cl, ci = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
+    emu.emu_elementwise.argtypes = [ci, vp, cl, vp, cl, vp, cl, ci, ci]
+    return emu
 
 
 def _ptr(t):
@@ -321,7 +357,21 @@ def _random_limbs(rng, n, S):
 
 
 OPS = ("add", "mul", "mul_float", "from_float", "sqrt", "rsqrt",
-       "scale_limb_exp")
+       "scale_limb_exp", "div")
+
+
+def _zero_divisors(a, b):
+    """Zero divisors under a non-zero dividend of each sign and under a
+    zero one, and a -inf dividend (entries 5..8)."""
+    S = a.shape[-1]
+    a, b = a.clone(), b.clone()
+    a[5] = torch.from_numpy(limb.one(S))
+    a[6] = -a[5]
+    a[7] = 0.0
+    a[8] = torch.from_numpy(limb.from_words_np(
+        np.array([[-np.inf, 0.0, 0.0]]), S)[0])
+    b[5:8] = 0.0
+    return a, b
 
 
 @pytest.mark.parametrize("S", [4, 26, 30, 47, 62, 116, 128, 130])
@@ -336,16 +386,18 @@ def test_warp_ops_match_per_thread_ops(emu, S):
     ix = torch.from_numpy(rng.integers(-5, 5, count).astype(np.int32))
     steps = limb.newton_steps(S - 1)
     for op, name in enumerate(OPS):
-        x = a.clone()
+        x, y = a.clone(), b
         if name in ("sqrt", "rsqrt"):
             x = limb.abs_(x)
             x[5] = -x[6]   # negative
             x[6] = 0.0     # zero
+        if name == "div":
+            x, y = _zero_divisors(x, y)
         warp = torch.empty_like(a)
         thread = torch.empty_like(a)
-        assert emu.emu_warp_ops(op, _ptr(x), _ptr(b), _ptr(xf), _ptr(ix),
+        assert emu.emu_warp_ops(op, _ptr(x), _ptr(y), _ptr(xf), _ptr(ix),
                                 _ptr(warp), count, S, steps) == 0
-        emu.thread_ops(op, _ptr(x), _ptr(b), _ptr(xf), _ptr(ix),
+        emu.thread_ops(op, _ptr(x), _ptr(y), _ptr(xf), _ptr(ix),
                        _ptr(thread), count, S, steps)
         assert _same(warp, thread), name
 
@@ -390,3 +442,49 @@ def test_solve_kernel_matches_plain(emu, bb, n, m, S, tm):
         assert _same(out, lk.solve_unblocked_plain(lfac, b, inv_d,
                                                    bool(transpose)))
 
+
+
+@pytest.mark.parametrize("S", [4, 26, 47, 116, 130])
+def test_elementwise_kernel_matches_plain(emu, S):
+    """limb_add, limb_mul and limb_div's kernel against add_plain,
+    mul_plain and div_plain: 12 values on 2 blocks of 4 warps (so each
+    warp takes one or two values in the grid-stride loop), then the same
+    with b's first value broadcast over the batch (stride 0)."""
+    n = 12
+    rng = np.random.default_rng(100 + S)
+    a, b = _zero_divisors(_random_limbs(rng, n, S), _random_limbs(rng, n, S))
+    b[9] = a[9]            # x / x
+    a[10] = -a[11]         # x + (-x)
+    b[10] = a[11]
+    assert lk.elementwise_geometry(n, S)["blocks"] == 3
+    one, stride0 = lk.elementwise_operand(b[:1], (n,))
+    assert stride0 == 0 and one.shape == (S,)
+    for op, plain in enumerate((limb.add_plain, limb.mul_plain,
+                                limb.div_plain)):
+        for y, sb in ((b, S), (one, 0)):
+            out = torch.empty_like(a)
+            assert emu.emu_elementwise(op, _ptr(a), S, _ptr(y), sb,
+                                       _ptr(out), n, S, 2) == 0
+            assert _same(out, plain(a, y)), (op, sb)
+
+
+@pytest.mark.parametrize("n", [1, 13])
+def test_elementwise_kernel_on_its_own_grid(emu, n):
+    """The elementwise kernel on the grid elementwise_geometry gives it (a
+    warp for each value, the last block part empty), each op against its
+    plain version at S = 47: 13 values on 4 blocks, or each of 13 values
+    alone on one block."""
+    S = 47
+    rng = np.random.default_rng(200 + n)
+    a, b = _zero_divisors(_random_limbs(rng, 13, S),
+                          _random_limbs(rng, 13, S))
+    blocks = lk.elementwise_geometry(n, S)["blocks"]
+    assert blocks == -(-n // lk.ELEMENTWISE_WARPS)
+    for op, plain in enumerate((limb.add_plain, limb.mul_plain,
+                                limb.div_plain)):
+        for i in range(0, 13, n):
+            x, y = a[i:i + n].contiguous(), b[i:i + n].contiguous()
+            out = torch.empty_like(x)
+            assert emu.emu_elementwise(op, _ptr(x), S, _ptr(y), S,
+                                       _ptr(out), n, S, blocks) == 0
+            assert _same(out, plain(x, y)), (op, i)
