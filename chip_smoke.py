@@ -7,9 +7,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each printing its name and elapsed seconds:
   1. environment: card name and power limit, torch/CUDA versions, mpmath
   2. build: the limb kernels of every slot class (128, 256 and 512
-     slots) with nvcc, one process per object, all started together
-     (registers, stack frame and spills per kernel instantiation; a
-     spill fails the phase)
+     slots) and the float64-expansion kernels of every word count
+     (K = 1..20) with nvcc, one process per object, all started
+     together (registers, stack frame and spills per kernel
+     instantiation; a spill fails the phase)
   3. kernels against their plain PyTorch versions, bit for bit: the
      factorization kernels at the full-width shapes (S = 47, 400 bits)
      and at S = 26 (--precision 212), S = 116 (--precision 1024),
@@ -18,7 +19,10 @@ Phases, each printing its name and elapsed seconds:
      at a time, and with one operand broadcast over the batch;
      CUDA-event times of back-to-back calls, and for the elementwise
      kernels, whose calls are bound by the host, also the device time
-     of a CUDA graph of the calls
+     of a CUDA graph of the calls; the five expansion kernels (add,
+     mul, div, add_f64, mul_f64) likewise at (49152, 8) and at 4096
+     values for K = 2, 4, 8 and 20, over zeros, cancellation, NaN,
+     +-inf and exponents 2^-500..2^500
   4. the 1d quickstart SDP end to end through the sdpb CLI entry point
      at the stock contract (--precision 212): PrimalDualOptimal and the
      known objective
@@ -37,6 +41,17 @@ Phases, each printing its name and elapsed seconds:
      iteration (the Q Cholesky on 32 panels), its time, the Q
      Cholesky's time, peak memory against the memory estimate (no more
      than 10% below the peak, here and in phase 5)
+  8. the float64-expansion format on the card (sdpb_tpu's --device cpu
+     format): (a) the 1d SDP through the library at --precision 212
+     (K = 4) to PrimalDualOptimal, against sdpb_tpu's recorded
+     expansion run (objective and trajectory); (b) the full-width
+     synthetic problem at 400 bits (K = 8) for 1 iteration, its time,
+     phase split and peak memory against the estimate, its first
+     iteration (objectives, mu, beta and the search direction to 1e-30)
+     against phase 5's limb one, and one more iteration under
+     torch.profiler; (c) approx_objective's CLI
+     on the card on the 1d SDP, (a)'s solution and a perturbed SDP
+     compiled by pmp2sdp, against the same CLI on the CPU
 
 The line before the last is one JSON object with a record per kernel
 (``ms``: CUDA events around back-to-back calls; ``device_ms``: the CUDA
@@ -64,6 +79,11 @@ import numpy as np
 T0 = time.time()
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_F32_PER_S = 67e12         # H100 SXM float32, outside tensor cores
+# H100 SXM float64 outside the tensor cores, in operations: the data
+# sheet's 34 TFLOP/s counts an FMA as two, and the expansion kernels,
+# built without FMA, issue one add, mul, div or compare an instruction
+# at that rate (132 SMs x 64 float64 lanes x 1.98 GHz).
+PEAK_F64_PER_S = 17e12
 REPO = Path(__file__).resolve().parent
 
 
@@ -151,22 +171,33 @@ def phase_env() -> str:
 
 
 def phase_build():
-    """Every slot class's library, all units of all classes compiled at
-    once; registers, stack and spills per factorization kernel, and a
-    failure if one of them spills."""
+    """Every slot class's limb library and the expansion library, all
+    units compiled at once (the two builds in two threads, each
+    starting all its nvcc processes); registers, stack and spills per
+    kernel instantiation, and a failure if one of them spills."""
     t = time.time()
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sdpb_tpu_torch.ops import expansion_kernels as ek
     from sdpb_tpu_torch.ops import limb_kernels as lk
 
-    infos = lk.build(force=True)
+    with ThreadPoolExecutor(2) as pool:
+        limb_job = pool.submit(lk.build, force=True)
+        exp_job = pool.submit(ek.build, force=True)
+        infos, exp_info = limb_job.result(), exp_job.result()
     spills = []
-    for cap, info in infos.items():
-        print(f"class {cap}: nvcc build {info['seconds']:.1f} s -> "
+    builds = [(f"class {cap}", info) for cap, info in infos.items()]
+    builds.append(("expansion K=1..20", exp_info))
+    for label, info in builds:
+        print(f"{label}: nvcc build {info['seconds']:.1f} s -> "
               f"{Path(info['library']).name}", flush=True)
         for name, res in _ptxas_resources(info["ptxas"]).items():
             print(f"  {name}: {json.dumps(res)}", flush=True)
             if res.get("spill_stores", 0) or res.get("spill_loads", 0):
-                spills.append((cap, name, res))
+                spills.append((label, name, res))
+    for cap in infos:
         lk._lib(cap)
+    ek._lib()
     if spills:
         raise AssertionError(f"kernels spill: {spills}")
     phase("2 build", t)
@@ -174,15 +205,16 @@ def phase_build():
 
 def _ptxas_resources(lines):
     """Registers, stack frame and spill bytes per kernel instantiation
-    (template arguments R, W and, for the elementwise kernel, the op),
-    read from the -Xptxas -v lines."""
+    (template arguments R, W and, for the elementwise kernel, the op;
+    K and the op for the expansion kernel), read from the -Xptxas -v
+    lines."""
     out, cur = {}, None
     for line in lines:
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
-            k = re.search(r"(chol_warp|solve_warp|elementwise_warp)_kernel"
-                          r"I((?:Li\d+E)+)E", m.group(1))
+            k = re.search(r"(chol_warp|solve_warp|elementwise_warp|"
+                          r"expansion)_kernelI((?:Li\d+E)+)E", m.group(1))
             cur = (f"{k.group(1)}_kernel<"
                    + ",".join(re.findall(r"Li(\d+)E", k.group(2))) + ">"
                    if k else None)
@@ -261,11 +293,12 @@ ELEMENTWISE_SHAPES = ((48 * 32 * 32, 47), (4096, 26), (4096, 116)) + tuple(
     (4096, S) for S in HIGH_SLOTS)
 
 
-def bound_ms(nbytes, ops):
+def bound_ms(nbytes, ops, peak_ops=PEAK_F32_PER_S):
     """(least time in ms, what bounds it): the bytes moved over the
-    memory rate or the float operations over the float32 rate."""
+    memory rate or the float operations over their type's rate
+    (float32 by default)."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -357,6 +390,9 @@ def phase_kernels(dev):
     for n, S in ELEMENTWISE_SHAPES:
         for name, recs in _elementwise_checks(dev, rng, S, n).items():
             rows.setdefault(name, []).extend(recs)
+    for n, k in EXPANSION_SHAPES:
+        for name, recs in _expansion_checks(dev, rng, k, n).items():
+            rows.setdefault(name, []).extend(recs)
     phase("3 kernels vs plain", t)
     return rows
 
@@ -438,6 +474,126 @@ def _elementwise_checks(dev, rng, S, n):
         print(f"{name} (1,{S}): bit-exact on values 0..8  kernel {call1:.4f} "
               f"ms (device {dev1:.4f} ms)  bound %.6f ms (%s)"
               % bound_ms(3 * S * 4, per_op[name]), flush=True)
+    return rows
+
+
+# Expansion kernels (values, K): one full-width operation at K = 8 (400
+# bits; the Schur complement's 48 x 32 x 32 values, as for the limbs),
+# then 4096 values at K = 2, 4, 8 and 20 (--precision 1060, the largest
+# the kernels take).
+EXPANSION_SHAPES = ((48 * 32 * 32, 8), (4096, 2), (4096, 4), (4096, 8),
+                    (4096, 20))
+
+
+def _random_expansions(rng, n, k, dev):
+    """n normalized K-word expansions over exponents 2^-500..2^500 (at
+    K = 20 the tails reach the subnormal range), with zeros, NaN, +-inf
+    and values near both ends of the float64 range."""
+    import torch
+
+    from sdpb_tpu_torch.mp import core
+
+    e = rng.integers(-500, 500, size=(n, 1))
+    w = rng.standard_normal((n, k)) * 2.0 ** (e - 53 * np.arange(k))
+    w[rng.random(n) < 0.05] = 0.0
+    x = core.renorm_words(torch.from_numpy(w), k)
+    x[1] = math.nan
+    x[2:4] = 0.0
+    x[2, 0], x[3, 0] = math.inf, -math.inf
+    x[4] = 0.0
+    x[4, 0] = 2.0 ** 1000
+    x[5] = 0.0
+    x[5, 0] = 2.0 ** -1000
+    return x.to(dev)
+
+
+def _mul_terms(k):
+    return sum((i + j <= k) + (i + j + 1 <= k)
+               for i in range(k) for j in range(k))
+
+
+def _exp_ops(name, k):
+    """Float64 operations of one value of an expansion kernel
+    (csrc/expansion.cuh), an add, mul, div or compare one each: a
+    two_sum 6, a fast_two_sum 3, a two_prod 17 (two splits of 4, the
+    product and its error 9), a compare-exchange 1 (its exchange moves
+    words); a renormalization of n words 10 (n - 1) (the two_sum chain,
+    the emit's fast_two_sum and its test).  A sign change is an operand
+    modifier, not an operation.  mul forms the two_prod of each pair
+    with i + j < K once (its error is the next level's term) and only
+    the rounded product of each pair with i + j = K."""
+    def renorm(n):
+        return 10 * (n - 1)
+
+    if k == 1:
+        return 1
+    if name == "exp_add":
+        if k == 2:
+            return 20
+        n = 1 << (2 * k - 1).bit_length()
+        return (n // 2) * (n.bit_length() - 1) + renorm(n)
+    if name == "exp_mul":
+        if k == 2:
+            return 24
+        return (17 * (k * (k + 1) // 2) + (k - 1)
+                + renorm(_mul_terms(k)))
+    if name == "exp_mul_f64":
+        return 17 * k + renorm(2 * k - 1)
+    if name == "exp_add_f64":
+        # a is ordered: K - 1 comparisons confirm it, x's insertion K
+        return (2 * k - 1) + renorm(k + 1)
+    # exp_div: K + 1 digits, each a div, a mul_f64 and an add
+    return (k + 1) * (1 + _exp_ops("exp_mul_f64", k)
+                      + _exp_ops("exp_add", k)) + renorm(k + 1)
+
+
+def _expansion_checks(dev, rng, k, n):
+    """The five expansion kernels against their plain versions, bit for
+    bit with NaN in the same places, on n random expansions with special
+    values among them: b value by value (and the first 9 values one
+    launch each), and b's first value broadcast over the batch (read in
+    place, batch stride 0)."""
+    from sdpb_tpu_torch.mp import core
+    from sdpb_tpu_torch.ops import expansion_kernels as ek
+
+    a = _random_expansions(rng, n, k, dev)
+    b = _random_expansions(rng, n, k, dev)
+    b[6] = -a[6]                       # exact cancellation
+    b[7] = 0.0                         # zero divisor and summand
+    x = b[:, 0].contiguous()
+    rows = {}
+    for name, kern, plain, y in (
+            ("exp_add", ek.exp_add, core.add_plain, b),
+            ("exp_mul", ek.exp_mul, core.mul_plain, b),
+            ("exp_div", ek.exp_div, core.div_plain, b),
+            ("exp_add_f64", ek.exp_add_f64, core.add_f64_plain, x),
+            ("exp_mul_f64", ek.exp_mul_f64, core.mul_f64_plain, x)):
+        width = k if y.dim() == 2 else 1
+        for label, yy, nb in (("", y, n), (" b broadcast", y[:1], 1)):
+            got = kern(a, yy)
+            want, plain_ms = timed_once(lambda: plain(a, yy))
+            _check_same(f"{name} ({n},{k}){label}", got, want)
+            if nb == n:
+                for i in range(9):
+                    _check_same(f"{name} (1,{k}) value {i}",
+                                kern(a[i:i + 1], yy[i:i + 1]),
+                                want[i:i + 1])
+            ms = cuda_ms(lambda: kern(a, yy), 5)
+            dev_ms = device_ms(lambda: kern(a, yy), 5)
+            nbytes, ops = (2 * n * k + nb * width) * 8, n * _exp_ops(name, k)
+            print(f"{name} ({n},{k}){label}: bit-exact  kernel {ms:.4f} ms "
+                  f"(device {dev_ms:.4f} ms)  plain {plain_ms:.3f} ms  "
+                  f"bound %.5f ms (%s)"
+                  % bound_ms(nbytes, ops, PEAK_F64_PER_S), flush=True)
+            rows.setdefault(name, []).append(dict(
+                shape=[n, k], err=0.0, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                peak=PEAK_F64_PER_S,
+                main=(n, k) == EXPANSION_SHAPES[0] and nb == n))
+        call1 = cuda_ms(lambda: kern(a[:1], y[:1]), 20)
+        dev1 = device_ms(lambda: kern(a[:1], y[:1]), 5)
+        print(f"{name} (1,{k}): bit-exact on values 0..8  kernel "
+              f"{call1:.4f} ms (device {dev1:.4f} ms)", flush=True)
     return rows
 
 
@@ -525,6 +681,57 @@ def _check_1d_trajectory(path: Path):
           f"differences: " + json.dumps(worst), flush=True)
 
 
+class _FirstDirection:
+    """Keeps, on the host, the search direction (dx, dy) that the solver
+    hands to ``bucket_iteration.apply_step`` first: the first
+    iteration's corrector direction, which needs no eigenvector."""
+
+    def __enter__(self):
+        from sdpb_tpu_torch.solver import bucket_iteration as bit
+
+        self.dx = self.dy = None
+        self._inner = inner = bit.apply_step
+
+        def apply_step(problem, state, res, dx, dX, dy, dY, *args):
+            if self.dy is None:
+                self.dx = [t.cpu().numpy() for t in dx]
+                self.dy = dy.cpu().numpy()
+            return inner(problem, state, res, dx, dX, dy, dY, *args)
+
+        bit.apply_step = apply_step
+        return self
+
+    def __exit__(self, *exc):
+        from sdpb_tpu_torch.solver import bucket_iteration as bit
+
+        bit.apply_step = self._inner
+
+
+def _direction_gap(got, want):
+    """max |got - want| / max |want| of dx (all blocks) and of dy, each
+    value exact in mpmath (limbs or float64 words)."""
+    import mpmath
+
+    from sdpb_tpu_torch.mp import decimal as mpdec
+
+    ctx = mpmath.mp.clone()
+    ctx.prec = 1200
+    gap = {}
+    flat = lambda blocks: np.concatenate(
+        [a.reshape(-1, a.shape[-1]) for a in blocks])
+    for key in ("dx", "dy"):
+        g, w = getattr(got, key), getattr(want, key)
+        if key == "dx":
+            g, w = flat(g), flat(w)
+        num = den = ctx.mpf(0)
+        for gi, wi in zip(g, w):
+            vw = mpdec.to_mpf(wi, ctx)
+            num = max(num, abs(mpdec.to_mpf(gi, ctx) - vw))
+            den = max(den, abs(vw))
+        gap[key] = float(num / den)
+    return gap
+
+
 def phase_full(dev, iterations=1):
     t = time.time()
     import torch
@@ -542,8 +749,9 @@ def phase_full(dev, iterations=1):
     timers = Timers()
     lk.reset_launches()
     t_solve = time.time()
-    result = driver.solve(problem, params, state=state, timers=timers)
-    torch.cuda.synchronize()
+    with _FirstDirection() as direction:
+        result = driver.solve(problem, params, state=state, timers=timers)
+        torch.cuda.synchronize()
     seconds = time.time() - t_solve
     launches = dict(lk.LAUNCHES)
     for rec in result.iterations:
@@ -569,29 +777,34 @@ def phase_full(dev, iterations=1):
         raise AssertionError(f"full width ran {n_it} iterations")
     if min(launches.values()) <= 0:
         raise AssertionError(f"full width missed a kernel: {launches}")
-    _profile_iteration(problem, state, seconds / n_it)
+    _profile_iteration(problem, state, seconds / n_it,
+                       SolverParams(precision=400, max_iterations=1),
+                       "full width")
     phase("5 full width", t)
     return launches, {"N": problem.dual_dim, "peak": peak,
-                      "estimate": estimate}
+                      "estimate": estimate,
+                      "first": result.iterations[0],
+                      "direction": direction}
 
 
 # Device kernels by what launched them: the port's own CUDA kernels, the
 # integer elementwise glue (CRT digits and residues, limb exponents),
 # library matrix products, and the rest (float glue, copies).
-LIMB_KERNELS = (
+PORT_KERNELS = (
     ("cholesky_unblocked_batched", r"\(anonymous namespace\)::chol_warp_kernel<"),
     ("solve_unblocked_batched", r"\(anonymous namespace\)::solve_warp_kernel<"),
     ("limb_elementwise",
      r"\(anonymous namespace\)::elementwise_warp_kernel<"),
+    ("expansion_elementwise", r"\(anonymous namespace\)::expansion_kernel<"),
 )
 PROFILE_CLASSES = (
-    ("limb_kernels", "|".join(pat for _, pat in LIMB_KERNELS)),
+    ("port_kernels", "|".join(pat for _, pat in PORT_KERNELS)),
     ("matmul", r"gemm|xmma|cutlass"),
     ("integer_glue", r"<(int|long)\b|\b(int|long)>|\((int|long)\)#"),
 )
 
 
-def _profile_iteration(problem, state, s_per_it):
+def _profile_iteration(problem, state, s_per_it, params, label):
     """One more full-width iteration under torch.profiler: device time
     per CUDA kernel name, summed, and that total over the unprofiled
     seconds per iteration (the device's busy share; kernels run on one
@@ -601,9 +814,7 @@ def _profile_iteration(problem, state, s_per_it):
     from torch.profiler import ProfilerActivity, profile
 
     from sdpb_tpu_torch.solver import driver
-    from sdpb_tpu_torch.solver.params import SolverParams
 
-    params = SolverParams(precision=400, max_iterations=1)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         driver.solve(problem, params, state=state)
         torch.cuda.synchronize()
@@ -622,16 +833,16 @@ def _profile_iteration(problem, state, s_per_it):
                    "other")
         classes[cls] = classes.get(cls, 0.0) + ms
     kernels = {}
-    for name, pat in LIMB_KERNELS:
+    for name, pat in PORT_KERNELS:
         keys = [k for k in device_ms if re.search(pat, k)]
         kernels[name] = {"device_ms": sum(device_ms[k] for k in keys),
                          "launches": sum(calls[k] for k in keys)}
     top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]
-    print("full width profiled iteration: " + json.dumps({
+    print(f"{label} profiled iteration: " + json.dumps({
         "device_ms_total": total,
         "busy_share": total / 1e3 / s_per_it if total else "not measured",
         "device_ms_by_class": classes,
-        "limb_kernels": kernels,
+        "port_kernels": kernels,
         "top_device_ms": {k[:120]: v for k, v in top}}), flush=True)
 
 
@@ -834,6 +1045,289 @@ def phase_large(dev, n_dual=1024):
     return launches, {"N": n_dual, "peak": peak, "estimate": estimate.total}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the float64-expansion format on the card
+# ---------------------------------------------------------------------------
+
+EXP_KERNELS = ("exp_add", "exp_mul", "exp_div", "exp_add_f64", "exp_mul_f64")
+
+
+def _mpf400(text):
+    import mpmath
+
+    ctx = mpmath.mp.clone()
+    ctx.prec = 400
+    return ctx.mpf(text)
+
+
+def _rel(a, b):
+    a, b = _mpf400(a), _mpf400(b)
+    return float(abs(a - b) / max(abs(a), abs(b), _mpf400("1e-300")))
+
+
+def _require_launches(label, launches, names):
+    missing = [n for n in names if launches.get(n, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{label} did not launch {missing}: {launches}")
+
+
+def _check_exp_trajectory(records, ref):
+    """The card's expansion trajectory against sdpb_tpu's recorded CPU
+    run: the same number of iterations; mu, the objectives, the gap and
+    beta to 1e-12 relative and the step lengths to 1e-12; the error
+    norms to 1e-6 relative or 1e-10 absolute.  Over the 160 iterations
+    the port's own CPU run differs from the recording by up to 1.4e-14
+    in mu, 8.8e-15 in the objectives and 1.7e-14 in the steps (the
+    eigenvectors behind the step lengths come from two LAPACK builds),
+    and by up to 1.7e-13 absolute in the dual error, a residual that
+    is rounding noise once the iterate is dual feasible (iteration 47
+    on); the card's rsqrt seeds may also differ in the last bit."""
+    want = ref["iterations"]
+    if len(records) != len(want):
+        raise AssertionError(f"expansion 1d took {len(records)} iterations, "
+                             f"sdpb_tpu {len(want)}")
+    worst = {}
+    for g, w in zip(records, want):
+        for key in ("mu", "primal_objective", "dual_objective",
+                    "duality_gap", "beta_corrector"):
+            r = _rel(getattr(g, key), w[key])
+            worst[key] = max(worst.get(key, 0.0), r)
+            if r > 1e-12:
+                raise AssertionError(f"expansion 1d iteration {g.iteration} "
+                                     f"{key}: {getattr(g, key)} vs {w[key]}")
+        for key in ("primal_error_P", "primal_error_p", "dual_error"):
+            a, b = _mpf400(getattr(g, key)), _mpf400(w[key])
+            d = float(abs(a - b))
+            worst[key] = max(worst.get(key, 0.0), d)
+            if d > 1e-6 * float(max(abs(a), abs(b))) + 1e-10:
+                raise AssertionError(f"expansion 1d iteration {g.iteration} "
+                                     f"{key}: {getattr(g, key)} vs {w[key]}")
+        for key in ("primal_step", "dual_step"):
+            d = abs(getattr(g, key) - w[key])
+            worst[key] = max(worst.get(key, 0.0), d)
+            if d > 1e-12:
+                raise AssertionError(f"expansion 1d iteration "
+                                     f"{g.iteration} {key}")
+    return worst
+
+
+def _expansion_1d(dev, out_root: Path):
+    """(a) The 1d SDP in float64 expansions through the library
+    (driver.solve on CUDA tensors), to termination."""
+    import torch
+
+    from sdpb_tpu_torch.io import output as out_io
+    from sdpb_tpu_torch.io.sdp_json import read_sdp
+    from sdpb_tpu_torch.ops import expansion_kernels as ek
+    from sdpb_tpu_torch.ops import limb_kernels as lk
+    from sdpb_tpu_torch.solver import driver
+    from sdpb_tpu_torch.solver.data import bucketed_problem_from_raw
+    from sdpb_tpu_torch.solver.params import SolverParams
+
+    ref = json.loads((REPO / "sdpb_tpu_torch" / "data" /
+                      "reference_trajectories.json").read_text())[
+        "quickstart_1d_expansion"]
+    params = SolverParams(precision=212, word_dtype="float64")
+    raw = read_sdp(REPO / "sdpb_tpu_torch" / "data" / "quickstart_1d_sdp",
+                   k=params.n_words)
+    problem = bucketed_problem_from_raw(raw, params.n_words, dev,
+                                        torch.float64)
+    ek.reset_launches()
+    lk.reset_launches()
+    t0 = time.time()
+    result = driver.solve(problem, params)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(ek.LAUNCHES)
+    if any(lk.LAUNCHES.values()):
+        raise AssertionError(f"the expansion solve launched limb kernels: "
+                             f"{lk.LAUNCHES}")
+    _require_launches("expansion 1d", launches, EXP_KERNELS)
+    if result.reason.name != "PrimalDualOptimal":
+        raise AssertionError(f"expansion 1d ended {result.reason.name}")
+    diff = abs(_mpf400(result.primal_objective)
+               - _mpf400(ref["primal_objective"]))
+    if not diff <= _mpf400("1e-30"):
+        raise AssertionError(f"expansion 1d primalObjective "
+                             f"{result.primal_objective} off by {diff}")
+    worst = _check_exp_trajectory(result.iterations, ref)
+    sol_dir = out_root / "exp_1d_out"
+    out_io.save_solution(sol_dir, result, problem, int(seconds),
+                         write_solution="x,y,X,Y")
+    print(f"(a) expansion 1d (K = {params.n_words}): "
+          f"{len(result.iterations)} iterations in {seconds:.2f} s, "
+          f"{result.reason.name}, primalObjective "
+          f"{result.primal_objective[:50]} |diff| {float(diff):.3e}; "
+          f"trajectory vs sdpb_tpu, worst: {json.dumps(worst)}; launches "
+          f"{launches}", flush=True)
+    return launches, sol_dir, seconds
+
+
+def _expansion_full(dev, limb_first, limb_direction):
+    """(b) bench.py's synthetic problem at full width in expansions
+    (400 bits, K = 8) for 1 iteration: time, phase split, peak memory
+    against the estimate, and the first iteration against the limb
+    format's (phase 5): mu, objectives, gap and beta to 1e-30 relative
+    (both formats carry 400 bits), the search direction (dx of every
+    block and dy, through the Schur complement, both Cholesky
+    factorizations and the solves) to 1e-30 relative to its largest
+    entry, and the error norms to 1e-4 relative (the limb format
+    reports them as float32 estimates from its three leading limbs,
+    ~2^-17 resolution).  The step lengths are held only to 1e-2
+    relative: the limb format takes its lambda_min eigenvectors
+    from those float32 estimates of the matrices, whose Rayleigh
+    quotient is off by ~||C|| (2^-17 ||C|| / gap)^2: 1.3e-3 relative
+    at this iteration's dual step on the card."""
+    import torch
+
+    from sdpb_tpu_torch.ops import expansion_kernels as ek
+    from sdpb_tpu_torch.solver import driver, memory, synthetic
+    from sdpb_tpu_torch.solver.params import SolverParams
+    from sdpb_tpu_torch.utils.timers import Timers
+
+    params = SolverParams(precision=400, max_iterations=1,
+                          word_dtype="float64")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    problem, state = synthetic.build_problem(params, device=dev)
+    estimate = memory.estimate_solver_memory(problem).total
+    timers = Timers()
+    ek.reset_launches()
+    t0 = time.time()
+    with _FirstDirection() as direction:
+        result = driver.solve(problem, params, state=state, timers=timers)
+        torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(ek.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _require_launches("expansion full width", launches, EXP_KERNELS)
+    if len(result.iterations) != 1:
+        raise AssertionError(f"expansion full width ran "
+                             f"{len(result.iterations)} iterations")
+    split = {}
+    for name, start, stop in timers.named:
+        leaf = name.rsplit(".", 1)[-1]
+        if stop is not None and name.count(".") >= 2:
+            split[leaf] = split.get(leaf, 0.0) + (stop - start)
+    got = result.iterations[0]
+    worst = {}
+    for keys, tol in ((("mu", "primal_objective", "dual_objective",
+                        "duality_gap", "beta_corrector"), 1e-30),
+                      (("primal_error_P", "primal_error_p", "dual_error",
+                        "R_error"), 1e-4)):
+        for key in keys:
+            r = _rel(getattr(got, key), getattr(limb_first, key))
+            worst[key] = r
+            if r > tol:
+                raise AssertionError(f"expansion full width {key} "
+                                     f"{getattr(got, key)} vs limb "
+                                     f"{getattr(limb_first, key)}")
+    for key, r in _direction_gap(direction, limb_direction).items():
+        worst[key] = r
+        if not r <= 1e-30:
+            raise AssertionError(f"expansion full width {key} is "
+                                 f"{r} (relative) from the limb format's")
+    for key in ("primal_step", "dual_step"):
+        d = abs(getattr(got, key) / getattr(limb_first, key) - 1.0)
+        worst[key] = d
+        if d > 1e-2:
+            raise AssertionError(f"expansion full width {key} "
+                                 f"{getattr(got, key)} vs limb "
+                                 f"{getattr(limb_first, key)}")
+    print(f"(b) expansion full width (K = {params.n_words}): 1 iteration "
+          f"in {seconds:.2f} s; phase split (s): "
+          + json.dumps({k: round(v, 3) for k, v in split.items()})
+          + f"; max_memory_allocated {peak / 2**30:.3f} GiB estimate "
+          f"{estimate / 2**30:.3f} GiB; vs the limb iteration, worst: "
+          f"{json.dumps(worst)}; launches {launches}", flush=True)
+    _profile_iteration(problem, state, seconds, params,
+                       "expansion full width")
+    return launches, {"N": f"{problem.dual_dim} (expansions)", "peak": peak,
+                      "estimate": estimate}
+
+
+def _run_json(fn, argv):
+    """stdout of an entry point, parsed as JSON."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(argv)
+    if rc != 0:
+        raise AssertionError(f"{argv[0]}... exited {rc}")
+    return json.loads(buf.getvalue())
+
+
+def _expansion_approx(dev, out_root: Path, sol_dir: Path):
+    """(c) approx_objective's CLI on the card (its default device) on
+    the 1d SDP, (a)'s solution and a nearby SDP (the quickstart PMP
+    with one coefficient moved, compiled by the port's pmp2sdp), against
+    the same CLI on the CPU: the linear term to 1e-60 relative (the
+    same operations on the same words), the quadratic term and the
+    objective to 1e-30 (the rebuilt Schur complement's condition
+    estimate, ~4e59 at the solution, amplifies last-bit differences of
+    the pivots' rsqrt seeds between the card and the CPU)."""
+    from sdpb_tpu_torch.apps import approx_objective, pmp2sdp
+    from sdpb_tpu_torch.io import pmp_writer
+    from sdpb_tpu_torch.ops import expansion_kernels as ek
+
+    work = out_root / "exp_approx"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    # examples/quickstart.py:33-44 with 1/12 moved to 0.0834
+    pmp_writer.write_pmp_json(
+        work / "pmp.json", objective=[0, -1], normalization=[1, 0],
+        matrices=[pmp_writer.PositiveMatrixWithPrefactor(
+            prefactor=pmp_writer.DampedRational(
+                constant=1, base="0.36787944117144233", poles=[]),
+            polynomials=[[[[1, 0, 0, 0, 1], [0, 0, 1, 0, "0.0834"]]]])])
+    if pmp2sdp.main(["-p", "768", "-i", str(work / "pmp.json"), "-o",
+                     str(work / "sdp_new"), "-v", "0"]) != 0:
+        raise AssertionError("pmp2sdp failed on the perturbed PMP")
+    argv = ["--sdp", str(REPO / "sdpb_tpu_torch" / "data" /
+                         "quickstart_1d_sdp"),
+            "--precision", "212", "--newSdp", str(work / "sdp_new"),
+            "--solutionDir", str(sol_dir), "-v", "0"]
+    ek.reset_launches()
+    t0 = time.time()
+    card = _run_json(approx_objective.main, argv)
+    seconds = time.time() - t0
+    launches = dict(ek.LAUNCHES)
+    _require_launches("approx_objective", launches,
+                      ("exp_add", "exp_mul", "exp_div", "exp_add_f64"))
+    cpu = _run_json(lambda a: approx_objective.main(a, device="cpu"), argv)
+    worst = {}
+    for key, tol in (("d_objective", 1e-60), ("dd_objective", 1e-30),
+                     ("objective", 1e-30)):
+        r = _rel(card[0][key], cpu[0][key])
+        worst[key] = r
+        if r > tol:
+            raise AssertionError(f"approx_objective {key} on the card "
+                                 f"{card[0][key]} vs the CPU "
+                                 f"{cpu[0][key]}")
+    if not _mpf400(card[0]["dd_objective"]) != 0:
+        raise AssertionError("approx_objective: zero quadratic term")
+    print(f"(c) approx_objective on the card in {seconds:.2f} s: objective "
+          f"{card[0]['objective'][:40]} d {card[0]['d_objective'][:24]} dd "
+          f"{card[0]['dd_objective'][:24]}; vs the CPU, worst relative "
+          f"{json.dumps(worst)}; launches {launches}", flush=True)
+    return launches
+
+
+def phase_expansion(dev, out_root: Path, limb_full):
+    """Phase 8: the expansion format on the card, paths (a)-(c)."""
+    t = time.time()
+    paths = {}
+    paths["exp_1d"], sol_dir, _ = _expansion_1d(dev, out_root)
+    paths["exp_full_width"], mem = _expansion_full(
+        dev, limb_full["first"], limb_full["direction"])
+    paths["exp_approx_objective"] = _expansion_approx(dev, out_root,
+                                                      sol_dir)
+    phase("8 expansion format", t)
+    return paths, mem
+
+
 def check_memory_estimates(cells):
     """A fail-fast check that predicts too little guards nothing."""
     for cell in cells:
@@ -847,15 +1341,20 @@ def check_memory_estimates(cells):
 
 def kernel_json(rows, paths):
     """One record per kernel: its largest full-width shape's times and
-    bound, ``launches`` from the full-width iteration (phase 5), and
-    each path's launches beside them."""
-    launches = paths["full_width"]
+    bound, ``launches`` from its format's full-width iteration (phase 5
+    for the limb kernels, phase 8b for the expansion kernels), and each
+    path's launches beside them."""
     meta = {
         "cholesky_unblocked_batched": "sdpb_tpu/ops/limb_kernels.py:251",
         "solve_unblocked_batched": "sdpb_tpu/ops/limb_kernels.py:180",
         "limb_add": "sdpb_tpu/mp/limb.py:499",
         "limb_mul": "sdpb_tpu/mp/limb.py:532",
         "limb_div": "sdpb_tpu/mp/limb.py:670",
+        "exp_add": "sdpb_tpu/mp/core.py:422",
+        "exp_add_f64": "sdpb_tpu/mp/core.py:446",
+        "exp_mul": "sdpb_tpu/mp/core.py:487",
+        "exp_mul_f64": "sdpb_tpu/mp/core.py:516",
+        "exp_div": "sdpb_tpu/mp/core.py:558",
     }
     sources = {"cholesky_unblocked_batched": "sdpb_tpu_torch/csrc/limb_chol.cu",
                "solve_unblocked_batched": "sdpb_tpu_torch/csrc/limb_solve.cu",
@@ -865,10 +1364,14 @@ def kernel_json(rows, paths):
     out = []
     for name, recs in rows.items():
         rec = max((r for r in recs if r["main"]), key=lambda r: r["ops"])
-        bound, bound_by = bound_ms(rec["bytes"], rec["ops"])
+        bound, bound_by = bound_ms(rec["bytes"], rec["ops"],
+                                   rec.get("peak", PEAK_F32_PER_S))
+        launches = paths["exp_full_width" if name in EXP_KERNELS
+                         else "full_width"]
         out.append({
             "name": name, "route": "cuda",
-            "source": sources[name],
+            "source": sources.get(
+                name, "sdpb_tpu_torch/csrc/expansion_elementwise.cu"),
             "replaces": meta[name], "launches": launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in recs),
             "ms": rec["ms"], "device_ms": rec.get("device_ms"),
@@ -901,7 +1404,9 @@ def main(argv=None) -> int:
     paths["full_width"], full_mem = phase_full(dev)
     paths["cli_2048"] = phase_frontend(dev, out_root)
     paths["n_1024"], large_mem = phase_large(dev)
-    check_memory_estimates([full_mem, large_mem])
+    exp_paths, exp_mem = phase_expansion(dev, out_root, full_mem)
+    paths.update(exp_paths)
+    check_memory_estimates([full_mem, large_mem, exp_mem])
     print(card, flush=True)
     print(json.dumps(kernel_json(rows, paths)), flush=True)
     print(json.dumps({"ok": True, "device": {

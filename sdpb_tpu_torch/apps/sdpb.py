@@ -1,5 +1,6 @@
 """`sdpb` CLI of the port: solve an SDP directory on one CUDA device in
-the base-2^9 limb format, with the JAX package's flags and contract.
+the base-2^9 limb format, or on the CPU in the float64-expansion format
+(--device cpu), with the JAX package's flags and contract.
 
     python -m sdpb_tpu_torch.apps.sdpb -s <sdp dir> [-o <out dir>] \\
         [-c <checkpoint dir>] --precision 400
@@ -11,13 +12,12 @@ directory (default <sdpDir sibling>/ck) a checkpoint every
 unless --noFinalCheckpoint, and block_timings after every solve.  A run
 restarts from -i, or from an existing ck/checkpoint.json.  The memory
 estimate is checked against the device's free memory before anything is
-allocated there (exit 1 over it).  --precision above the kernels'
-largest slot class (ops/limb_kernels.py) is refused at startup.
+allocated there (exit 1 over it).  On the card, --precision above the
+limb kernels' largest slot class (ops/limb_kernels.py) is refused at
+startup; the CPU's expansion format has no cap.
 
 Not in this port yet (exit 2, naming the missing module): multi-device
-solves (parallel/, with the intra-block fallback), and the
-float64-expansion format (--device cpu: the expansion branch of
-mp/core.py).
+solves (parallel/, with the intra-block fallback).
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "cuda", "tpu", "cpu"],
                    help="auto/cuda (tpu is accepted as its alias): the "
                         "limb format on the CUDA device. cpu: the "
-                        "float64-expansion format, not available here")
+                        "float64-expansion format on the CPU")
     p.add_argument("--procsPerNode", type=int, default=None,
                    help="[OBSOLETE] determined automatically")
     p.add_argument("--procGranularity", type=int, default=None,
@@ -91,13 +91,19 @@ def _missing(what: str, module: str) -> int:
 
 def main(argv=None, device=None) -> int:
     """CLI entry point.  ``device`` (a torch device or name) overrides
-    --device; tests pass "cpu" to run the limb path on CPU tensors."""
+    --device and keeps the limb format; tests pass "cpu" to run the limb
+    path on CPU tensors.  Without it, --device cpu solves in float64
+    expansions on the CPU (as sdpb_tpu's --device cpu does) and any
+    other --device in limbs on the CUDA device."""
     args = build_parser().parse_args(argv)
     import torch
 
     from ..ops.limb_kernels import MAX_SLOTS, max_precision_bits
 
-    if args.precision > max_precision_bits():
+    word_dtype = "float32"
+    if device is None and args.device == "cpu":
+        device, word_dtype = "cpu", "float64"
+    if word_dtype == "float32" and args.precision > max_precision_bits():
         print(f"sdpb: --precision {args.precision} needs more than the "
               f"{MAX_SLOTS} slots of the largest kernel class; the largest "
               f"precision this port takes is {max_precision_bits()}",
@@ -109,9 +115,6 @@ def main(argv=None, device=None) -> int:
     ck_dir = pathlib.Path(args.checkpointDir) if args.checkpointDir else \
         sdp_dir.parent / "ck"
     if device is None:
-        if args.device == "cpu":
-            return _missing("--device cpu (the float64-expansion format)",
-                            "the expansion branch of mp/core.py")
         from ..device import resolve_device
 
         device = resolve_device(None)
@@ -154,6 +157,7 @@ def main(argv=None, device=None) -> int:
         detect_primal_feasible_jump=args.detectPrimalFeasibleJump,
         detect_dual_feasible_jump=args.detectDualFeasibleJump,
         max_shared_memory=str(args.maxSharedMemory),
+        word_dtype=word_dtype,
     )
 
     t_start = time.time()
@@ -161,16 +165,18 @@ def main(argv=None, device=None) -> int:
     # fail fast, before anything is allocated on the device
     # (`run.cxx:80-183`)
     try:
-        check_memory_limit(shape_of_raw(raw, params.n_words), device=device,
+        check_memory_limit(shape_of_raw(raw, params.n_words, params.dtype),
+                           device=device,
                            verbose=args.verbosity >= 2,
                            q_bytes_cap=args.maxSharedMemory)
     except MemoryLimitError as e:
         print(f"sdpb: {e}", file=sys.stderr)
         return 1
-    problem = bucketed_problem_from_raw(raw, params.n_words, device)
+    problem = bucketed_problem_from_raw(raw, params.n_words, device,
+                                        params.dtype)
     if args.verbosity >= 1:
         dims = sum(bk.nb * bk.shape.schur_size for bk in problem.buckets)
-        print(f"SDPB (PyTorch, {device}) started at "
+        print(f"SDPB (PyTorch, {device}, {word_dtype} words) started at "
               f"{time.strftime('%Y-%m-%d %H:%M:%S')}")
         print(f"SDP directory   : {sdp_dir}")
         print(f"out directory   : {out_dir}")

@@ -5,6 +5,9 @@
   ``Y_matrix_<2i+p>.txt`` ("height width" + one decimal per line)
 - ``iterations.json`` (`run/print_iteration.cxx:75-109`)
 - ``c_minus_By/c_minus_By.json`` (`run/save_c_minus_By.hxx`)
+
+Every decimal is the exact value of the MP words (float32 limbs or
+float64 expansions, ``mp/decimal.py``).
 """
 
 from __future__ import annotations
@@ -55,20 +58,22 @@ def write_out_txt(path, result, runtime_seconds: int) -> None:
 
 def make_z(y_mp, normalization: list[str]):
     """Insert the normalization-eliminated component back into y
-    (`save_solution.cxx:70-105`) -> float64 word expansions."""
+    (`save_solution.cxx:70-105`) -> float64 word expansions (K words for
+    an expansion y, enough words for a limb y's precision)."""
     import mpmath
 
     y = _host(y_mp)
     k = y.shape[-1]
+    expansion = y.dtype == np.float64
     ctx = mpmath.mp.clone()
-    ctx.prec = 9 * k + 100
+    ctx.prec = (53 if expansion else 9) * k + 100
     n_vals = [ctx.mpf(s) for s in normalization]
     max_index = int(np.argmax([abs(float(v)) for v in n_vals]))
     y_vals = [mpdec.to_mpf(y[i], ctx) for i in range(y.shape[0])]
     z_vals = y_vals[:max_index] + [ctx.mpf(0)] + y_vals[max_index:]
     nz = ctx.fsum(n * z for n, z in zip(n_vals, z_vals))
     z_vals[max_index] = (1 - nz) / n_vals[max_index]
-    kw = max(2, -(-(9 * k) // 53)) + 1
+    kw = k if expansion else max(2, -(-(9 * k) // 53)) + 1
     return np.stack([mpdec.from_mpf(v, kw) for v in z_vals])
 
 

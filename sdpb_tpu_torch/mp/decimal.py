@@ -2,8 +2,9 @@
 
 The reference reads and writes every number as a full-precision decimal
 string.  Decimals are parsed with mpmath into float64 word expansions
-(exact greedy splitting), which ``mp/limb.from_words_np`` then converts
-exactly into limbs; limb arrays print through their exact mpmath value.
+(exact greedy splitting): the expansion format takes them as they
+are, and ``mp/limb.from_words_np`` converts them exactly into limbs.
+Both formats print through their exact mpmath value.
 """
 
 from __future__ import annotations
@@ -91,3 +92,63 @@ def to_decimal(words, digits: int | None = None) -> str:
         digits = int(np.ceil(span * 0.30103)) + 2
     return ctx.nstr(to_mpf(words, ctx), digits, strip_zeros=True,
                     min_fixed=1, max_fixed=0)
+
+
+def _np_two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def words_to_dtype(words: np.ndarray, k_out: int, dtype) -> np.ndarray:
+    """Host-side (numpy, IEEE-exact) conversion of float64 word
+    expansions to ``k_out`` words of ``dtype``: each source word is
+    split exactly into destination words, then a two_sum chain and a
+    top-down emit renormalize them.  Values beyond the destination
+    dtype's finite range are clamped to its largest finite value of the
+    same sign, so that 'effectively infinite' thresholds (the 1e100
+    maxComplementarity default) keep their comparisons without inf."""
+    words = np.asarray(words)
+    dtype = np.dtype(dtype)
+    if dtype != words.dtype:
+        fmax = float(np.finfo(dtype).max)
+        flat = np.asarray(words, dtype=np.float64).reshape(
+            -1, words.shape[-1]).copy()
+        over = np.abs(flat[:, 0]) >= fmax
+        if np.any(over):
+            sign = np.where(flat[over, 0] > 0, fmax, -fmax)
+            flat[over] = 0.0
+            flat[over, 0] = sign
+            words = flat.reshape(words.shape)
+    src = []
+    for i in range(words.shape[-1]):
+        r = words[..., i].astype(np.float64)
+        for _ in range(3 if dtype == np.float32 else 1):
+            w = r.astype(dtype)
+            src.append(w)
+            r = r - w.astype(np.float64)
+    m = np.stack([w.astype(dtype) for w in src], axis=-1)
+    n = m.shape[-1]
+    s = m[..., -1]
+    errs = []
+    for i in range(n - 2, -1, -1):
+        s, e = _np_two_sum(m[..., i], s)
+        errs.append(e)
+    seq = [s] + errs[::-1]
+    out = np.zeros(words.shape[:-1] + (k_out,), dtype=dtype)
+    acc = seq[0]
+    j = np.zeros(words.shape[:-1], dtype=np.int64)
+    for w in seq[1:]:
+        s2, e2 = _np_two_sum(acc, w)
+        emit = (e2 != 0) & (j < k_out - 1)
+        if emit.any():
+            flat = out.reshape(-1, k_out)
+            jf = j.reshape(-1)
+            ef = emit.reshape(-1)
+            sf = s2.reshape(-1)
+            flat[np.nonzero(ef)[0], jf[ef]] = sf[ef]
+        j = j + emit
+        acc = np.where(emit, e2, s2)
+    flat = out.reshape(-1, k_out)
+    flat[np.arange(flat.shape[0]), j.reshape(-1)] = acc.reshape(-1)
+    return out

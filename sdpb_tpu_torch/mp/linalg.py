@@ -1,19 +1,24 @@
-"""Dense linear algebra on limb matrices (..., n, m, S).
+"""Dense linear algebra on MP matrices (..., n, m, K), both formats.
 
-The PyTorch counterpart of the JAX package's ``mp/linalg.py``, for the
-limb format on the route the accelerator takes there:
+The PyTorch counterpart of the JAX package's ``mp/linalg.py``, on the
+route the accelerator takes there:
 
 - ``matmul`` sends large products (batched ones too) to the exact
   integer CRT pipeline (``ops/mpmm.py``) and small ones to the plain
-  elementwise limb product with a tree sum;
-- ``cholesky``, ``solve_lower`` and ``solve_lower_t`` are panel-blocked
-  around the two limb kernels (``ops/limb_kernels.py``), with trailing
-  updates as CRT matmuls, for any number of rows;
-- ``lower_inverse`` builds L^-1 from kernel-inverted diagonal blocks.
+  elementwise MP product with a tree sum;
+- for limbs (float32), ``cholesky``, ``solve_lower`` and
+  ``solve_lower_t`` are panel-blocked around the two limb kernels
+  (``ops/limb_kernels.py``), with trailing updates as CRT matmuls, for
+  any number of rows, and ``lower_inverse`` builds L^-1 from
+  kernel-inverted diagonal blocks;
+- for float64 expansions they are the JAX package's own expansion
+  routes, column and row loops of elementwise MP operations (each one
+  kernel launch on the card) inside panels of 32, written over a
+  leading batch axis where the JAX package vmaps.
 
 Routing follows the tensor's device, not a global: CUDA tensors launch
 the kernels, CPU tensors run their plain versions, and both take the
-same blocked route.  Every function accepts leading batch axes.
+same route.  Every function accepts leading batch axes.
 """
 
 from __future__ import annotations
@@ -73,7 +78,8 @@ def _product(a, b, crt: bool, syrk: bool = False):
     if crt:
         from ..ops import mpmm
 
-        plan = mpmm.plan_for(core.precision_bits_of(a.shape[-1]), n)
+        plan = mpmm.plan_for(core.precision_bits_of(a.shape[-1], a.dtype),
+                             n)
         at = a.transpose(-3, -2)
         if syrk:
             return mpmm.syrk_mp_batched(at, plan)
@@ -141,10 +147,10 @@ def frobenius(a, b):
 # Cholesky and triangular solves (blocked around the limb kernels)
 # ---------------------------------------------------------------------------
 
-def _eye(n: int, k: int, device):
-    out = torch.zeros((n, n, k), dtype=torch.float32, device=device)
+def _eye(n: int, k: int, device, dtype=torch.float32):
+    out = torch.zeros((n, n, k), dtype=dtype, device=device)
     idx = torch.arange(n, device=device)
-    out[idx, idx] = torch.as_tensor(core.one_np(k), device=device)
+    out[idx, idx] = torch.as_tensor(core.one_np(k, dtype), device=device)
     return out
 
 
@@ -156,7 +162,8 @@ def _pad_identity(a, npad: int):
                       dtype=a.dtype, device=a.device)
     out[..., :n, :n, :] = a
     idx = torch.arange(n, n + npad, device=a.device)
-    out[..., idx, idx, :] = torch.as_tensor(core.one_np(k), device=a.device)
+    out[..., idx, idx, :] = torch.as_tensor(core.one_np(k, a.dtype),
+                                            device=a.device)
     return out
 
 
@@ -234,10 +241,12 @@ def _cholesky_limb_batched(a):
 
 
 def cholesky(a):
-    """Lower Cholesky of symmetric positive-definite limb matrices
-    (..., n, n, S); a non-PD input gives NaNs."""
+    """Lower Cholesky of symmetric positive-definite MP matrices
+    (..., n, n, K); a non-PD input gives NaNs."""
     batch = a.shape[:-3]
-    out = _cholesky_limb_batched(a.reshape((-1,) + a.shape[-3:]))
+    flat = a.reshape((-1,) + a.shape[-3:])
+    out = _cholesky_limb_batched(flat) if core.is_limb(a) \
+        else _cholesky_exp_batched(flat)
     return out.reshape(batch + out.shape[1:])
 
 
@@ -289,26 +298,150 @@ def _solve_limb_batched(l, b, transpose: bool):
     return x[:, :n] if npad else x
 
 
-def _route_limb_solve(l, b, transpose: bool):
+def _route_solve(l, b, transpose: bool):
     vec = b.dim() == l.dim() - 1
     if vec:
         b = b[..., None, :]
     batch = l.shape[:-3]
     b = b.expand(batch + b.shape[-3:])
-    out = _solve_limb_batched(l.reshape((-1,) + l.shape[-3:]),
-                              b.reshape((-1,) + b.shape[-3:]), transpose)
+    solve = _solve_limb_batched if core.is_limb(l) else _solve_exp_batched
+    out = solve(l.reshape((-1,) + l.shape[-3:]),
+                b.reshape((-1,) + b.shape[-3:]), transpose)
     out = out.reshape(batch + out.shape[1:])
     return out[..., 0, :] if vec else out
 
 
 def solve_lower(l, b):
     """X = L^{-1} B, panel-blocked forward substitution."""
-    return _route_limb_solve(l, b, transpose=False)
+    return _route_solve(l, b, transpose=False)
 
 
 def solve_lower_t(l, b):
     """X = L^{-T} B, panel-blocked backward substitution."""
-    return _route_limb_solve(l, b, transpose=True)
+    return _route_solve(l, b, transpose=True)
+
+
+# ---------------------------------------------------------------------------
+# The expansion routes (float64 words): the JAX package's unblocked loops
+# and panel loops, vectorized over a leading batch axis BB
+# ---------------------------------------------------------------------------
+
+def _lower_mask(n: int, device):
+    rows = torch.arange(n, device=device)
+    return (rows[:, None] >= rows[None, :])[:, :, None]
+
+
+def _cholesky_exp_unblocked(a):
+    """Right-looking Cholesky of a (BB, n, n, K): pivot by sqrt_rsqrt,
+    the column scaled by the pivot's rsqrt, the rank-1 update added to
+    the whole matrix under the trailing mask."""
+    n = a.shape[1]
+    rows = torch.arange(n, device=a.device)
+    mat = a.clone()
+    for j in range(n):
+        d, dinv = core.sqrt_rsqrt(mat[:, j, j])
+        col = core.mul(mat[:, :, j], dinv[:, None, :])
+        below = rows > j
+        col = torch.where(below[:, None], col,
+                          torch.where((rows == j)[:, None], d[:, None, :],
+                                      0.0))
+        mat[:, :, j] = col
+        upd = core.mul(col[:, :, None, :], col[:, None, :, :])
+        mask = (below[:, None] & below[None, :])[:, :, None]
+        mat = core.add(mat, torch.where(mask, -upd, 0.0))
+    return torch.where(_lower_mask(n, a.device), mat, 0.0)
+
+
+def _cholesky_exp_batched(a):
+    """Panel-blocked right-looking Cholesky of a (BB, n, n, K): the
+    panel's columns by ``col_step``, the trailing update one SYRK of the
+    panel added to the whole matrix (the JAX package's loop)."""
+    n, nb = a.shape[1], _PANEL
+    if n <= 2 * nb:
+        return _cholesky_exp_unblocked(a)
+    npad = (-n) % nb
+    mat = _pad_identity(a, npad) if npad else a.clone()
+    N = n + npad
+    rows = torch.arange(N, device=a.device)
+    cidx = torch.arange(nb, device=a.device)
+    for pi in range(N // nb):
+        j = pi * nb
+        C = torch.where((rows >= j)[:, None, None], mat[:, :, j:j + nb], 0.0)
+        for t in range(nb):
+            d, dinv = core.sqrt_rsqrt(C[:, j + t, t])
+            col = core.mul(C[:, :, t], dinv[:, None, :])
+            below = rows > (j + t)
+            col = torch.where(below[:, None], col,
+                              torch.where((rows == j + t)[:, None],
+                                          d[:, None, :], 0.0))
+            C[:, :, t] = col
+            upd = core.mul(col[:, :, None, :], col[:, None, j:j + nb, :])
+            C = core.add(C, torch.where((cidx > t)[None, :, None], -upd,
+                                        0.0))
+        mat[:, :, j:j + nb] = C
+        P = torch.where((rows >= j + nb)[:, None, None], C, 0.0)
+        upd = _product(P, P.transpose(1, 2),
+                       _int_backend_ok(P.shape[1:], N), syrk=True)
+        mat = core.add(mat, core.neg(upd))
+    out = torch.where(_lower_mask(N, a.device), mat, 0.0)
+    return out[:, :n, :n] if npad else out
+
+
+def _solve_exp_unblocked(l, b, inv_d, transpose: bool):
+    """X = L^{-1} B (or L^{-T} B) by substitution, one row a step:
+    the row's dot product with the rows found so far (a tree sum),
+    subtracted from B's row, times the diagonal reciprocal."""
+    n = b.shape[1]
+    rows = torch.arange(n, device=b.device)
+    x = torch.zeros_like(b)
+    for t in range(n):
+        i = n - 1 - t if transpose else t
+        if transpose:
+            li = torch.where((rows > i)[:, None], l[:, :, i, :], 0.0)
+        else:
+            li = torch.where((rows < i)[:, None], l[:, i, :, :], 0.0)
+        acc = core.sum_(core.mul(li[:, :, None, :], x), axis=1)
+        s = core.sub(b[:, i], acc)
+        x[:, i] = core.mul(s, inv_d[:, i, None, :])
+    return x
+
+
+def _solve_exp_batched(l, b, transpose: bool):
+    """Panel-blocked substitution, l (BB, n, n, K), b (BB, n, m, K):
+    per panel one unblocked solve plus one MP matmul update of the
+    whole right-hand side (the JAX package's loop)."""
+    BB, n, k = l.shape[0], l.shape[1], l.shape[-1]
+    m = b.shape[-2]
+    nb = _PANEL
+    if n <= 2 * nb:
+        didx = torch.arange(n, device=l.device)
+        return _solve_exp_unblocked(l, b, core.recip(l[:, didx, didx, :]),
+                                    transpose)
+    npad = (-n) % nb
+    if npad:
+        l = _pad_identity(l, npad)
+        b = torch.cat([b, b.new_zeros((BB, npad, m, k))], dim=1)
+    N = n + npad
+    npanels = N // nb
+    didx = torch.arange(N, device=l.device)
+    inv_d = core.recip(l[:, didx, didx, :])
+    rows = torch.arange(N, device=l.device)
+    x = b.clone()
+    for t in range(npanels):
+        pi = npanels - 1 - t if transpose else t
+        j, e = pi * nb, (pi + 1) * nb
+        xp = _solve_exp_unblocked(l[:, j:e, j:e], x[:, j:e], inv_d[:, j:e],
+                                  transpose)
+        x[:, j:e] = xp
+        if transpose:
+            lpart = torch.where((rows < j)[None, :, None], l[:, j:e],
+                                0.0).transpose(1, 2)
+        else:
+            lpart = torch.where((rows >= e)[:, None, None], l[:, :, j:e],
+                                0.0)
+        upd = _product(lpart, xp, _int_backend_ok(lpart.shape[1:], m))
+        x = core.add(x, core.neg(upd))
+    return x[:, :n] if npad else x
 
 
 def use_inverse_panels(l) -> bool:
@@ -327,6 +460,14 @@ def lower_inverse(l):
     return out.reshape(batch + out.shape[1:])
 
 
+def _unblocked_inverse(l, eye, inv_d):
+    """L^-1 of small lower-triangular blocks against an identity rhs:
+    the solve kernel for limbs, the substitution loop for expansions."""
+    if core.is_limb(l):
+        return lk.solve_unblocked_batched(l.contiguous(), eye, inv_d)
+    return _solve_exp_unblocked(l, eye, inv_d, transpose=False)
+
+
 def _lower_inverse_batched(l):
     BB, n, k = l.shape[0], l.shape[-3], l.shape[-1]
     nb = _PANEL
@@ -334,8 +475,8 @@ def _lower_inverse_batched(l):
     if n <= 2 * nb:
         didx = torch.arange(n, device=dev)
         inv_d = core.recip(l[:, didx, didx, :])
-        eye = _eye(n, k, dev).expand(BB, n, n, k).contiguous()
-        return lk.solve_unblocked_batched(l.contiguous(), eye, inv_d)
+        eye = _eye(n, k, dev, l.dtype).expand(BB, n, n, k).contiguous()
+        return _unblocked_inverse(l, eye, inv_d)
     npad = (-n) % nb
     if npad:
         l = _pad_identity(l, npad)
@@ -346,9 +487,8 @@ def _lower_inverse_batched(l):
     dflat = dblk.reshape(BB * nblk, nb, nb, k).contiguous()
     didx = torch.arange(nb, device=dev)
     inv_d = core.recip(dflat[:, didx, didx, :])
-    eye = _eye(nb, k, dev).expand(BB * nblk, nb, nb, k).contiguous()
-    tii = lk.solve_unblocked_batched(dflat, eye, inv_d).reshape(
-        BB, nblk, nb, nb, k)
+    eye = _eye(nb, k, dev, l.dtype).expand(BB * nblk, nb, nb, k).contiguous()
+    tii = _unblocked_inverse(dflat, eye, inv_d).reshape(BB, nblk, nb, nb, k)
     T = torch.zeros((BB, N, N, k), dtype=l.dtype, device=dev)
     for i in range(nblk):
         T[:, i * nb:(i + 1) * nb, i * nb:(i + 1) * nb] = tii[:, i]

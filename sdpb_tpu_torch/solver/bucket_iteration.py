@@ -84,8 +84,8 @@ def compute_residues(problem: BucketedProblem,
     parts = [_residues_bucket(bk, state.x[bi], state.X[bi], state.Y[bi],
                               state.y)
              for bi, bk in enumerate(problem.buckets)]
-    k = problem.k
-    one = _const(mp.one_np(k), problem.b)
+    k, dt = problem.k, problem.dtype
+    one = _const(mp.one_np(k, dt), problem.b)
     cx = parts[0][8]
     for p in parts[1:]:
         cx = mp.add(cx, p[8])
@@ -100,7 +100,7 @@ def compute_residues(problem: BucketedProblem,
                              mp.abs_(dual_objective)), one)
     duality_gap = mp.div(gap_num, gap_den)
     primal_res_p = mp.sub(problem.b, bx)
-    to_mp = lambda v: mp.const_word(v, k)
+    to_mp = lambda v: mp.const_word(v, k, dt)
     return Residues(
         primal_objective, dual_objective, duality_gap,
         to_mp(torch.stack([p[6] for p in parts]).amax()),
@@ -131,7 +131,8 @@ def q_plan(problem: BucketedProblem):
     from ..ops import mpmm
 
     total_rows = sum(bk.nb * bk.shape.schur_size for bk in problem.buckets)
-    return mpmm.plan_for(mp.precision_bits_of(problem.k), total_rows)
+    return mpmm.plan_for(mpmm.precision_of(problem.dtype, problem.k),
+                         total_rows)
 
 
 def q_block_chunk(problem: BucketedProblem, max_bytes: int | None):
@@ -186,7 +187,7 @@ def schur_factorize(problem: BucketedProblem, res: Residues,
             else:
                 q_sum, d_sum = q_sum + q_res, d_sum + d_res
     q_sum = mpmm.reduce_residues_mod(q_sum, plan)
-    Q = mpmm.restore_q_mp(q_sum, e_col, plan, problem.k)
+    Q = mpmm.restore_q_mp(q_sum, e_col, plan, problem.k, problem.dtype)
     dg = torch.diagonal(q_sum, dim1=-2, dim2=-1)
     finite = finite & (dg == mpmm.reduce_residues_mod(d_sum, plan)).all()
     Q = torch.where(finite, Q, torch.nan)
@@ -199,13 +200,12 @@ def schur_factorize(problem: BucketedProblem, res: Residues,
 
 def compute_xy_mu(problem: BucketedProblem, state: BucketedState,
                   max_complementarity):
-    k = problem.k
-    dev = problem.device
+    k, dt, dev = problem.k, problem.dtype, problem.device
     minus_XY, tr = [], None
     for bi, bk in enumerate(problem.buckets):
         pars = it.parities(bk.shape)
         mb = []
-        t = mp.zeros((), k, dev)
+        t = mp.zeros((), k, dev, dt)
         for p in range(2):
             if p not in pars:
                 mb.append(state.X[bi][p])
@@ -215,14 +215,14 @@ def compute_xy_mu(problem: BucketedProblem, state: BucketedState,
             t = mp.add(t, mp.sum_(la.trace(mxy), axis=0))
         minus_XY.append(tuple(mb))
         tr = t if tr is None else mp.add(tr, t)
-    rows = torch.tensor(float(problem.total_psd_rows), device=dev)
-    mu = mp.div(mp.neg(tr), mp.const_word(rows, k))
+    rows = torch.tensor(float(problem.total_psd_rows), dtype=dt, device=dev)
+    mu = mp.div(mp.neg(tr), mp.const_word(rows, k, dt))
     terminate = mp.cmp_lt(_const(max_complementarity, tr), mu)
     r_err = torch.stack([
         _max_abs_approx(la.add_diag(minus_XY[bi][p], mu))
         for bi, bk in enumerate(problem.buckets)
         for p in it.parities(bk.shape)]).amax()
-    return minus_XY, mu, mp.const_word(r_err, k), terminate
+    return minus_XY, mu, mp.const_word(r_err, k, dt), terminate
 
 
 # ---------------------------------------------------------------------------
@@ -315,19 +315,18 @@ def corrector_beta(problem: BucketedProblem, state: BucketedState, dX, dY,
                    mu, feasible: bool, feasible_centering,
                    infeasible_centering):
     """`corrector_centering_parameter.cxx:12-31`."""
-    k = problem.k
-    dev = problem.device
+    k, dt, dev = problem.k, problem.dtype, problem.device
     frob = None
     for bi, bk in enumerate(problem.buckets):
-        f = mp.zeros((), k, dev)
+        f = mp.zeros((), k, dev, dt)
         for p in it.parities(bk.shape):
             per = la.frobenius(mp.add(state.X[bi][p], dX[bi][p]),
                                mp.add(state.Y[bi][p], dY[bi][p]))
             f = mp.add(f, mp.sum_(per, axis=0))
         frob = f if frob is None else mp.add(frob, f)
-    rows = torch.tensor(float(problem.total_psd_rows), device=dev)
+    rows = torch.tensor(float(problem.total_psd_rows), dtype=dt, device=dev)
     r = mp.div(frob, mp.mul_f64(mu, rows))
-    one = mp.const_word(torch.tensor(1.0, device=dev), k)
+    one = mp.const_word(torch.tensor(1.0, dtype=dt, device=dev), k, dt)
     beta = mp.where(mp.cmp_lt(r, one), mp.mul(r, r), r)
     if feasible:
         return mp.min_(mp.max_(_const(feasible_centering, mu), beta), one)
@@ -345,8 +344,9 @@ def _min_mp_over(lams):
 
 
 def _lambda_bucket(bk, L_X, dX, L_Y, dY):
-    k = bk.c.shape[-1]
-    inf = mp.const_word(torch.tensor(float("inf"), device=bk.c.device), k)
+    k, dt = bk.c.shape[-1], bk.c.dtype
+    inf = mp.const_word(torch.tensor(float("inf"), dtype=dt,
+                                     device=bk.c.device), k, dt)
     lam_p, lam_d = inf, inf
     for p in it.parities(bk.shape):
         cp = la.lower_inverse_congruence(L_X[p], dX[p])

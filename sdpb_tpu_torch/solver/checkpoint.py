@@ -1,16 +1,17 @@
 """Checkpoint save and load, the JAX package's format and semantics.
 
 Two generations are kept (current and backup), each one
-``checkpoint_<gen>.npz`` holding every bucket's limb arrays exactly;
+``checkpoint_<gen>.npz`` holding every bucket's MP arrays exactly;
 ``checkpoint.json`` carries the generation numbers and the solver
 options, and is committed by an atomic rename of
 ``checkpoint_new.json`` (`SDP_Solver/save_checkpoint.cxx:38-119`).  A
 failed write is retried (`save_checkpoint.cxx:67-100`); a load falls
 back to the backup generation when the current one cannot be read.
 
-The state is the bucketed limb layout of ``solver/data.py``, the same
-keys and arrays as the JAX package writes in its limb format, so a
-checkpoint written by either package loads in the other.  Without a
+The state is the bucketed layout of ``solver/data.py`` (float32 limbs
+or float64 expansions), the same keys and arrays as the JAX package
+writes in either format, so a checkpoint written by either package
+loads in the other.  Without a
 ``checkpoint.json``, a directory written with
 ``--writeSolution=x,y,X,Y`` loads as a text checkpoint
 (`load_checkpoint/load_text_checkpoint.cxx`).
@@ -132,10 +133,10 @@ def load_checkpoint(ck_dir, problem: BucketedProblem,
 
 def _check_shapes(problem: BucketedProblem, x, y, X, Y, path) -> None:
     k = problem.k
-    if tuple(y.shape) != (problem.dual_dim, k) or y.dtype != torch.float32:
+    if tuple(y.shape) != (problem.dual_dim, k) or y.dtype != problem.dtype:
         raise ValueError(f"{path}: y of shape {tuple(y.shape)}, "
                          f"{y.dtype}; the problem needs "
-                         f"({problem.dual_dim}, {k}) float32 limbs")
+                         f"({problem.dual_dim}, {k}) {problem.dtype}")
     for i, bk in enumerate(problem.buckets):
         if tuple(x[i].shape) != (bk.nb, bk.shape.schur_size, k):
             raise ValueError(f"{path}: x_{i} of shape {tuple(x[i].shape)}")
@@ -149,15 +150,19 @@ def _check_shapes(problem: BucketedProblem, x, y, X, Y, path) -> None:
 def _load_text_checkpoint(ck_dir, problem: BucketedProblem,
                           params) -> BucketedState | None:
     """Per-block text files regrouped into bucket stacks; the decimals
-    are read into float64 words and converted exactly to limbs."""
+    are read into float64 words, taken as they are by the expansion
+    format and converted exactly to limbs."""
     from ..io.text_io import read_text_matrix, read_text_vector
 
     if not (ck_dir / "y.txt").exists():
         return None
     kw, k = params.n_read_words, params.n_words
     dev = problem.device
-    t = lambda words: torch.as_tensor(limb.from_words_np(words, k),
-                                      device=dev)
+    if problem.dtype == torch.float64:
+        t = lambda words: torch.as_tensor(words, device=dev)
+    else:
+        t = lambda words: torch.as_tensor(limb.from_words_np(words, k),
+                                          device=dev)
     y = t(read_text_vector(ck_dir / "y.txt", kw))
     x, X, Y = [], [], []
     for bk in problem.buckets:

@@ -89,11 +89,27 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def check_format(problem: BucketedProblem, params: SolverParams) -> None:
+    """The problem's MP arrays must be in the parameters' word format at
+    its word count; float64 expansions on the card must fit the
+    expansion kernels (K <= 20 words, --precision 1060)."""
+    if (problem.dtype, problem.k) != (params.dtype, params.n_words):
+        raise ValueError(
+            f"the problem holds {problem.k} slots of {problem.dtype}; "
+            f"--precision {params.precision} in the {params.word_dtype} "
+            f"format needs {params.n_words} slots of {params.dtype}")
+    if problem.dtype == torch.float64 and problem.device.type == "cuda":
+        from ..ops import expansion_kernels
+
+        expansion_kernels.check_words("solve", problem.k)
+
+
 def solve(problem: BucketedProblem, params: SolverParams,
           state: BucketedState | None = None, verbose: bool = False,
           iteration_hook=None, timers=None) -> SolveResult:
     """Run the interior-point loop to termination.  ``timers``
     (utils.timers.Timers) records run.iter_<n>.{residues,step}."""
+    check_format(problem, params)
     it_mod = bucket_iteration
     if state is None:
         state = initial_bucketed_state(

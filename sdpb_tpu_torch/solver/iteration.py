@@ -70,7 +70,7 @@ def dual_residues(bk, ay_list, y):
     dev = bk.c.device
     r_i, s_i = _idx(r_idx, dev)[:, None], _idx(s_idx, dev)[:, None]
     kk = torch.arange(pts, device=dev)[None, :]
-    tr = mp.zeros((nb, bk.shape.n_tuples, pts), k, dev)
+    tr = mp.zeros((nb, bk.shape.n_tuples, pts), k, dev, bk.c.dtype)
     for ay in ay_list:
         tr = mp.add(tr, ay[:, r_i, kk, s_i, kk, :])
     d = mp.sub(bk.c, tr.reshape(nb, bk.shape.schur_size, k))
@@ -91,13 +91,13 @@ def weighted_sum(bk, a_vec):
     t_of = (hi * (hi + 1)) // 2 + lo
     w = a_t[:, _idx(t_of.reshape(-1), dev)].reshape(nb, m, m, pts, k)
     half = torch.as_tensor(np.where(A[:, None] == A[None, :], 1.0, 0.5),
-                           dtype=torch.float32, device=dev)
+                           dtype=a_vec.dtype, device=dev)
     w = mp.mul_pow2(w, half[:, :, None])
     out = []
     for p in range(2):
         h = bk.shape.he if p == 0 else bk.shape.ho
         if h == 0:
-            out.append(mp.zeros((nb, 0, 0), k, dev))
+            out.append(mp.zeros((nb, 0, 0), k, dev, a_vec.dtype))
             continue
         q = bk.q[p]                                   # (nb, h, pts, S)
         tmp = mp.mul(q[:, None, None], w[:, :, :, None, :, :])
@@ -117,7 +117,7 @@ def schur_rhs(bk, dres, Z):
     s_idx, r_idx = bk.shape.tuple_indices()
     r_i, s_i = _idx(r_idx, dev)[:, None], _idx(s_idx, dev)[:, None]
     kk = torch.arange(pts, device=dev)[None, :]
-    total = mp.zeros((nb, bk.shape.n_tuples, pts), k, dev)
+    total = mp.zeros((nb, bk.shape.n_tuples, pts), k, dev, dres.dtype)
     for p, Zp in zip(parities(bk.shape), Z):
         h = bk.shape.he if p == 0 else bk.shape.ho
         q = bk.q[p]
@@ -162,17 +162,17 @@ def schur_complement(bk, ax_list, ay_list):
 # ---------------------------------------------------------------------------
 
 def min_eig_mp(c_mp):
-    """lambda_min of symmetric limb matrices (nb, n, n, S) -> (nb, S):
+    """lambda_min of symmetric MP matrices (nb, n, n, K) -> (nb, K):
     a float64 ``eigh`` for the eigenvector, then the MP Rayleigh
     quotient v^T C v / v^T v (`step_length/min_eigenvalue.cxx` role)."""
-    k = c_mp.shape[-1]
+    k, dt = c_mp.shape[-1], c_mp.dtype
     w, v = torch.linalg.eigh(mp.approx(c_mp).to(torch.float64))
-    vm = mp.const_word(v[..., :, 0], k)                # (nb, n, S)
+    vm = mp.const_word(v[..., :, 0], k, dt)            # (nb, n, K)
     cv = la.matvec(c_mp, vm, vdims=1)
     num = mp.dot(vm, cv, axis=-1)
     den = mp.dot(vm, vm, axis=-1)
     rq = mp.div(num, den)
-    fallback = mp.const_word(w[..., 0], k)
+    fallback = mp.const_word(w[..., 0], k, dt)
     ok = torch.isfinite(mp.approx(rq))[..., None]
     return torch.where(ok, rq, fallback)
 
@@ -185,10 +185,11 @@ def min_mp(a, b):
 
 
 def alpha_mp(lam, gamma: float, k: int):
-    """step = min(1, -gamma/lambda_min), in full MP."""
-    dev = lam.device
-    g = mp.const_word(torch.tensor(gamma, dtype=torch.float32, device=dev), k)
-    one = mp.const_word(torch.tensor(1.0, device=dev), k)
+    """step = min(1, -gamma/lambda_min), in full MP; gamma is rounded to
+    the word dtype first, as in the JAX package (float32 for limbs)."""
+    dev, dt = lam.device, lam.dtype
+    g = mp.const_word(torch.tensor(gamma, dtype=dt, device=dev), k, dt)
+    one = mp.const_word(torch.tensor(1.0, dtype=dt, device=dev), k, dt)
     safe = mp.fst(lam) > -float(gamma)
     lam_safe = torch.where(safe[..., None], -one, lam)
     a = mp.div(mp.neg(g), lam_safe)

@@ -6,21 +6,27 @@ that an oversized problem stops at startup with a per-component report
 instead of dying mid-solve.  This module does the same for the port's
 own buffers on one CUDA device:
 
-- the limb arrays (4 S bytes per MP value) that live through an
-  iteration: problem data, the iterate and the next one, the
-  Cholesky factors, pairings, residues, the Schur factors, L^-1 B,
-  Q and its factor, and the search direction's matrices;
+- the MP arrays that live through an iteration (4 S bytes per limb
+  value, 8 K per float64 expansion): problem data, the iterate and
+  the next one, the Cholesky factors, pairings, residues, the Schur
+  factors, L^-1 B, Q and its factor, and the search direction's
+  matrices;
 - the transient buffers of the largest exact product of the
   iteration.  Every CRT product (``ops/exact.py``, ``ops/mpmm.py``)
   turns each input value into D int32 base-256 digits, then into P
   residues through float64 matmuls of the digits, keeps them as int8
   halves, multiplies the halves as float64 matmuls, and restores each
   output value through O int32 digit planes (float64 matmuls of the
-  residue halves by the CRT weights) and a limb renormalization.  The
+  residue halves by the CRT weights) and a renormalization.  The
   bytes per value of each stage below are read off that code: the
   tensors alive together at its widest point.  The largest products
   are L^-1 B (per bucket), the Q residues (per bucket), and the first
-  trailing update of the blocked Q Cholesky.
+  trailing update of the blocked Q Cholesky;
+- where expansion arithmetic runs its plain PyTorch versions (CPU
+  tensors), the temporaries of the largest elementwise product, the Schur
+  complement's terms: a plain expansion product keeps its partial
+  products, their level-ordered copy and the two_sum chain's words
+  alive together (on the card one kernel writes only its result).
 
 ``--maxSharedMemory`` caps the Q residue stage (the solver tiles it,
 ``bucket_iteration.q_block_chunk``); it is not a total limit.
@@ -31,6 +37,8 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
+
+import torch
 
 from ..mp import core
 from ..mp.linalg import _PANEL
@@ -100,14 +108,15 @@ class ShapeBucket:
 class ProblemShape:
     """What the estimate reads of a problem (a BucketedProblem has the
     same attributes): buckets with ``nb`` and ``shape``, the dual
-    dimension and the slot count."""
+    dimension, the slot count and the word dtype."""
 
     buckets: list
     dual_dim: int
     k: int
+    dtype: torch.dtype = torch.float32
 
 
-def shape_of_raw(raw, k: int) -> ProblemShape:
+def shape_of_raw(raw, k: int, dtype=torch.float32) -> ProblemShape:
     """The bucket shapes of a RawSDP, before anything is on the device
     (the grouping of ``data.bucketed_problem_from_raw``)."""
     from .data import group_blocks
@@ -115,30 +124,42 @@ def shape_of_raw(raw, k: int) -> ProblemShape:
     return ProblemShape(
         buckets=[ShapeBucket(len(idxs), shape)
                  for shape, idxs in group_blocks(raw).items()],
-        dual_dim=raw.dual_dim, k=k)
+        dual_dim=raw.dual_dim, k=k, dtype=core.torch_dtype(dtype))
 
 
-def _plan(k: int, n_rows: int):
+def _plan(k: int, n_rows: int, dtype):
     from ..ops import mpmm
 
-    return mpmm.plan_for(core.precision_bits_of(k), n_rows)
+    return mpmm.plan_for(core.precision_bits_of(k, dtype), n_rows)
 
 
-def _stage_bytes(k: int, n_rows: int) -> dict:
+def _stage_bytes(k: int, n_rows: int, dtype) -> dict:
     """Bytes per value at the widest point of each stage of one CRT
     product with contraction ``n_rows`` (ops/mpmm.py, ops/exact.py)."""
-    plan = _plan(k, n_rows)
+    plan = _plan(k, n_rows, dtype)
     D, P, O = plan.n_digits, plan.n_primes, plan.out_planes
-    L = k - 1
-    top = -(-(8 * O - 2 * plan.shift_bits) // 9)
-    n_ext = L + 2 + max(0, top)
-    renorm = 32 * (L + 1)       # limbs, carries, an int64 gather index
+    if core.torch_dtype(dtype) == torch.float64:
+        # digits: the int64 shift amounts and shifted mantissas of one
+        # word (8 D each, three of them) and the int32 accumulator;
+        # restore: the kept words (a group of 5 planes each), their
+        # stack, the two_sum chain's words and stack, the emit's slots
+        n_keep = -(-O // 5)
+        digits = 36 * D + 16
+        renorm = 32 * n_keep + 40 * k
+        item = 8 * k
+    else:
+        L = k - 1
+        top = -(-(8 * O - 2 * plan.shift_bits) // 9)
+        n_ext = L + 2 + max(0, top)
+        digits = max(32 * (L + 1), 12 * L + 24 * D)
+        renorm = 8 * n_ext + 32 * (n_ext + 2)
+        item = 4 * k
     return {
         "P": P,
-        # scaled input (4 S) alive while its digits are made: the digit
+        # scaled input alive while its digits are made: the digit
         # accumulator and its shift temporaries, or the residue
         # matmuls (digits, their float64 copy, two P-wide products)
-        "residues": 4 * k + max(renorm, 12 * L + 24 * D, 12 * D + 16 * P),
+        "residues": item + max(digits, 12 * D + 16 * P),
         # the int8 residue halves of an input, kept for the product
         "halves": 2 * P,
         # per input value during the products: int32 sums of the halves
@@ -151,16 +172,15 @@ def _stage_bytes(k: int, n_rows: int) -> dict:
         # per output value while restoring: the residues and the CRT
         # quotient temporaries (int32, P each), the int8 halves, one
         # float64 copy of them and the float64 and int32 planes (O each)
-        # -- or, later, the planes and the limb renormalization
-        "restore": max(18 * P + 8 * P + 16 * O,
-                       4 * P + 12 * O + 8 * n_ext + 32 * (n_ext + 2)),
+        # -- or, later, the planes and the renormalization
+        "restore": max(18 * P + 8 * P + 16 * O, 4 * P + 12 * O + renorm),
     }
 
 
-def _product_bytes(k, n_rows, n_a, n_b, n_out, syrk=False):
+def _product_bytes(k, n_rows, n_a, n_b, n_out, dtype, syrk=False):
     """Transient peak of one CRT product of n_a- and n_b-value inputs
     (n_b = 0 for a SYRK) into n_out values."""
-    st = _stage_bytes(k, n_rows)
+    st = _stage_bytes(k, n_rows, dtype)
     inputs = n_a + n_b
     return max(
         max(n_a, n_b) * st["residues"] + inputs * st["halves"],
@@ -170,17 +190,29 @@ def _product_bytes(k, n_rows, n_a, n_b, n_out, syrk=False):
         n_out * (4 * st["P"] + st["restore"]))
 
 
-def estimate_solver_memory(problem, q_bytes_cap: int | None = None
-                           ) -> MemoryEstimate:
-    """Predict the peak device allocation of one interior-point
-    iteration of the port on one device.
+def _plain_mul_bytes(k: int) -> int:
+    """Bytes per value alive at once in a plain PyTorch expansion
+    product: the two_prod grid and its splits (6 k^2 words), the
+    concatenated and level-ordered terms (2 k^2 + T) and the two_sum
+    chain's words and stack (2 T)."""
+    terms = sum((i + j <= k) + (i + j + 1 <= k)
+                for i in range(k) for j in range(k))
+    return 8 * (8 * k * k + 3 * terms)
+
+
+def estimate_solver_memory(problem, q_bytes_cap: int | None = None,
+                           plain: bool = False) -> MemoryEstimate:
+    """Predict the peak allocation of one interior-point iteration of
+    the port on one device.
 
     ``problem`` needs only shapes (a BucketedProblem, or
     ``shape_of_raw``'s ProblemShape).  ``q_bytes_cap`` is the
-    --maxSharedMemory cap on the Q residue stage."""
+    --maxSharedMemory cap on the Q residue stage; ``plain`` counts the
+    plain elementwise route's temporaries (CPU tensors)."""
     k = int(problem.k)
     n = int(problem.dual_dim)
-    mp_item = 4 * k
+    dt = core.torch_dtype(getattr(problem, "dtype", torch.float32))
+    mp_item = (8 if dt == torch.float64 else 4) * k
     comp = {key: 0 for key in (
         "problem data (c,B,q,u)", "iterate x,X,Y,y and the next one",
         "Cholesky L_X,L_Y", "pairings A_X_inv,A_Y",
@@ -207,20 +239,25 @@ def estimate_solver_memory(problem, q_bytes_cap: int | None = None
         comp["Schur S, L_S, L_S^-1"] += 3 * nb * schur * schur * mp_item
         comp["L^-1 B"] += nb * schur * n * mp_item
         transients[f"CRT product L^-1 B (bucket {bi})"] = _product_bytes(
-            k, schur, nb * schur * schur, nb * schur * n, nb * schur * n)
+            k, schur, nb * schur * schur, nb * schur * n, nb * schur * n,
+            dt)
         q_rows = nb * schur
         if q_bytes_cap:
             from .bucket_iteration import q_block_chunk
 
             q_rows = min(nb, q_block_chunk(problem, q_bytes_cap)) * schur
         transients[f"CRT residues of Q (bucket {bi})"] = _product_bytes(
-            k, total_rows, q_rows * n, 0, n * n, syrk=True)
+            k, total_rows, q_rows * n, 0, n * n, dt, syrk=True)
+        if plain and dt == torch.float64:
+            terms = nb * (sh.n_tuples * sh.pts) ** 2
+            transients[f"plain Schur complement terms (bucket {bi})"] = \
+                terms * (_plain_mul_bytes(k) + 3 * mp_item)
     comp["iterate x,X,Y,y and the next one"] += 2 * n * mp_item
     comp["Q, L_Q, dy"] = (2 * n * n + 4 * n) * mp_item
     if n > 2 * _PANEL:
         trail = n - _PANEL
         transients["CRT product Q Cholesky update"] = _product_bytes(
-            k, _PANEL, trail * _PANEL, 0, trail * trail, syrk=True)
+            k, _PANEL, trail * _PANEL, 0, trail * trail, dt, syrk=True)
     worst = max(transients, key=transients.get)
     comp[worst] = transients[worst]
     return MemoryEstimate(components=comp, transients=transients)
@@ -253,8 +290,10 @@ def check_memory_limit(problem, limit=None, device=None,
     estimate exceeds ``limit`` bytes.  ``limit`` 0/None: the
     SDPB_TPU_DEVICE_MEMORY environment variable if set, else the
     device's free memory; no limit known -> no check."""
+    plain = device is not None and torch.device(device).type == "cpu"
     est = estimate_solver_memory(problem,
-                                 q_bytes_cap=parse_bytes(q_bytes_cap or 0))
+                                 q_bytes_cap=parse_bytes(q_bytes_cap or 0),
+                                 plain=plain)
     limit = parse_bytes(limit) if limit else 0
     if not limit:
         env = os.environ.get("SDPB_TPU_DEVICE_MEMORY")

@@ -1,7 +1,8 @@
 """Solver parameters, mirroring the reference flag schema and defaults
-(`src/sdp_solve/Solver_Parameters/Solver_Parameters.cxx:10-157`), for
-the limb format.  Thresholds are decimal strings, converted exactly to
-limb constants."""
+(`src/sdp_solve/Solver_Parameters/Solver_Parameters.cxx:10-157`).
+Thresholds are decimal strings, converted exactly to MP constants of
+the word format: base-2^9 limbs ("float32", the card's default) or
+float64 word expansions ("float64")."""
 
 from __future__ import annotations
 
@@ -10,6 +11,9 @@ import functools
 
 import numpy as np
 
+import torch
+
+from ..mp import core as mpcore
 from ..mp import decimal as mpdec
 from ..mp import limb
 from .memory import parse_bytes
@@ -38,24 +42,41 @@ class SolverParams:
     detect_dual_feasible_jump: bool = False
     # --maxSharedMemory: byte cap on the Q residue pipeline's buffers
     max_shared_memory: str = "0"
+    # The MP word format: "float32" limbs (the card's default) or
+    # "float64" word expansions (sdpb --device cpu, as in sdpb_tpu).
+    word_dtype: str = "float32"
 
     @property
     def max_shared_memory_bytes(self) -> int:
         return parse_bytes(self.max_shared_memory)
 
     @property
+    def dtype(self) -> torch.dtype:
+        return mpcore.torch_dtype(self.word_dtype)
+
+    @property
     def n_words(self) -> int:
-        """Trailing-axis slot count of the limb arrays."""
-        return limb.slots_for_precision(self.precision)
+        """Trailing-axis size of the MP arrays of ``word_dtype``: limb
+        slots, or float64 words of 53 bits each."""
+        if self.dtype == torch.float32:
+            return limb.slots_for_precision(self.precision)
+        return max(2, -(-self.precision // 53))
 
     @property
     def n_read_words(self) -> int:
-        """float64 words that carry ``precision`` bits while reading."""
+        """float64 words that carry ``precision`` bits while reading
+        (one more than the expansion format's, for the limb path's
+        exact conversion)."""
+        if self.dtype == torch.float64:
+            return self.n_words
         return max(2, -(-self.precision // 53)) + 1
 
     @functools.lru_cache(maxsize=None)
     def mpconst(self, decimal: str) -> np.ndarray:
+        """The decimal as an MP constant of ``word_dtype``."""
         words = mpdec.from_decimal(decimal, self.n_read_words)
+        if self.dtype == torch.float64:
+            return words
         return limb.from_words_np(words, self.n_words)
 
     def max_complementarity_mp(self):
@@ -70,7 +91,9 @@ class SolverParams:
     def predictor_beta(self, is_primal_and_dual_feasible: bool):
         """0 if feasible, else the infeasible centering parameter."""
         if is_primal_and_dual_feasible:
-            return np.zeros((self.n_words,), dtype=np.float32)
+            return np.zeros((self.n_words,),
+                            dtype=np.float32 if self.dtype == torch.float32
+                            else np.float64)
         return self.infeasible_centering_mp()
 
     def _mpf(self, decimal: str):

@@ -5,7 +5,9 @@ Full width: 48 blocks with m=2 and 32 points plus 16 blocks with m=4
 and 24 points (Schur sizes 96 and 240), dual dimension N = 384, with
 the stock cold start X = Y = 1e20 I.  Data comes from
 ``numpy.random.default_rng(seed)`` in the same order as bench.py, so
-both implementations build the same problem.
+both implementations build the same problem; the words are in
+``params.word_dtype``'s format (limbs, or float64 words [x, 0, ...]),
+so either format runs the same seeded data.
 """
 
 from __future__ import annotations
@@ -25,11 +27,13 @@ def build_problem(params, device, buckets=BUCKETS, n_dual: int = N_DUAL,
                   seed: int = 0):
     """(BucketedProblem, BucketedState) on ``device``."""
     rng = np.random.default_rng(seed)
-    k = params.n_words
+    k, dt = params.n_words, params.dtype
 
     def mp_w(x):
-        return limb.from_words_np(np.asarray(x, dtype=np.float64)[..., None],
-                                  k)
+        x = np.asarray(x, dtype=np.float64)[..., None]
+        if dt == torch.float32:
+            return limb.from_words_np(x, k)
+        return np.concatenate([x, np.zeros(x.shape[:-1] + (k - 1,))], -1)
 
     t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
     out = []

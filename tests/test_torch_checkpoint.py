@@ -122,6 +122,65 @@ def test_checkpoints_load_across_packages_bit_for_bit(problems, tmp_path):
     assert (meta["current"], meta["backup"]) == (0, None)
 
 
+def _random_expansions(problem, seed):
+    """numpy float64 expansion arrays of the state's shapes: random
+    normalized K-word values over a wide exponent range (zeros
+    included)."""
+    from sdpb_tpu_torch.mp import core as tcore
+
+    rng = np.random.default_rng(seed)
+    k = problem.k
+
+    def arr(*shape):
+        e = rng.integers(-80, 80, shape + (1,))
+        w = rng.standard_normal(shape + (k,)) * 2.0 ** (
+            e - 53 * np.arange(k))
+        w[rng.random(shape) < 0.1] = 0.0
+        return tcore.renorm_words(torch.from_numpy(w), k).numpy()
+
+    out = {"y": arr(problem.dual_dim)}
+    for i, bk in enumerate(problem.buckets):
+        out[f"x_{i}"] = arr(bk.nb, bk.shape.schur_size)
+        for p, n in enumerate(bk.shape.psd_sizes):
+            out[f"X_{i}_{p}"] = arr(bk.nb, n, n)
+            out[f"Y_{i}_{p}"] = arr(bk.nb, n, n)
+    return out
+
+
+def test_float64_checkpoints_load_across_packages_bit_for_bit(tmp_path):
+    """The expansion format's state (sdpb_tpu's --device cpu) written by
+    either package loads in the other bit for bit."""
+    params = SolverParams(precision=PREC, word_dtype="float64")
+    k = params.n_words
+    raw = read_sdp(SDP_1D, k=k)
+    tp = bucketed_problem_from_raw(raw, k, "cpu", torch.float64)
+    jp = bucketize(problem_from_raw(j_read_sdp(SDP_1D, k=k)))
+    jparams = JParams(precision=PREC, word_dtype="float64")
+    n = len(tp.buckets)
+    a = _random_expansions(tp, 6)
+    jck.save_checkpoint(tmp_path / "j", _jax_state(a, n), jp, jparams)
+    got = _flat(tck.load_checkpoint(tmp_path / "j", tp, params))
+    b = _random_expansions(tp, 7)
+    tck.save_checkpoint(tmp_path / "t", _torch_state(b, n), tp, params)
+    back = _flat(jck.load_checkpoint(tmp_path / "t", jp, jparams))
+    for want, have in ((a, got), (b, back)):
+        assert want.keys() == have.keys()
+        for key in want:
+            assert want[key].dtype == have[key].dtype == np.float64, key
+            assert np.array_equal(want[key].view(np.int64),
+                                  have[key].view(np.int64)), key
+    # a limb problem refuses the float64 state, naming the format
+    with pytest.raises(RuntimeError, match="float64"):
+        tck.load_checkpoint(tmp_path / "j", _limb_problem(), SolverParams(
+            precision=PREC))
+
+
+def _limb_problem():
+    params = SolverParams(precision=PREC)
+    raw = read_sdp(SDP_1D, k=params.n_read_words)
+    return bucketed_problem_from_raw(raw, params.n_words, "cpu")
+
+
 def test_backup_generation_and_write_retries(problems, tmp_path,
                                              monkeypatch):
     params, tp, _ = problems

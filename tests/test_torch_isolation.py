@@ -50,18 +50,23 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
     assert devmod.resolve_device(None) == torch.device("cuda", 0)
 
 
-def test_missing_options_exit_nonzero(tmp_path, capsys):
+def test_missing_options_exit_nonzero(tmp_path, capsys, monkeypatch):
     """What the port does not have yet exits 2 naming the missing
-    module: the float64-expansion format (--device cpu).  Checkpoints,
-    --checkpointInterval and restarts are ported (test_torch_checkpoint.py);
-    a --precision above the largest kernel class is refused at startup
+    module: several visible CUDA devices (multi-device solves,
+    parallel/), checked before anything touches a card.  The
+    float64-expansion format (--device cpu) is ported
+    (test_torch_solver_expansion.py), as are checkpoints,
+    --checkpointInterval and restarts (test_torch_checkpoint.py); a
+    --precision above the largest kernel class is refused at startup
     (test_torch_memory.py)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     base = ["-s", str(SDP_1D), "-o", str(tmp_path / "out")]
-    assert app.main(base + ["--noFinalCheckpoint", "--device", "cpu"]) == 2
-    assert "mp/core.py" in capsys.readouterr().err
-    assert app.main(base + ["--device", "cpu", "--checkpointInterval",
+    assert app.main(base + ["--noFinalCheckpoint"]) == 2
+    assert "parallel/" in capsys.readouterr().err
+    assert app.main(base + ["--device", "cuda", "--checkpointInterval",
                             "10"]) == 2
-    assert "mp/core.py" in capsys.readouterr().err
+    assert "parallel/" in capsys.readouterr().err
 
 
 def test_chip_smoke_needs_a_card(monkeypatch, capsys):
@@ -75,8 +80,13 @@ def test_chip_smoke_needs_a_card(monkeypatch, capsys):
 
 
 def test_kernel_wrappers_refuse_other_devices():
+    from sdpb_tpu_torch.ops import expansion_kernels as ek
     from sdpb_tpu_torch.ops import limb_kernels as lk
 
     a = torch.zeros(1, 2, 2, 5, device="meta")
     with pytest.raises(ValueError):
         lk.cholesky_unblocked_batched(a)
+    e = torch.zeros(3, 4, dtype=torch.float64, device="meta")
+    for fn in (ek.exp_add, ek.exp_mul, ek.exp_div):
+        with pytest.raises(ValueError):
+            fn(e, e)

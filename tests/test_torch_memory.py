@@ -56,6 +56,32 @@ def test_estimate_from_the_raw_sdp_equals_the_problems():
         memory.estimate_solver_memory(problem).components
 
 
+def test_estimate_of_the_expansion_format():
+    """8 K bytes a float64-expansion value, the shape-only path equal to
+    the problem's, and the plain route's temporaries counted on the CPU
+    only."""
+    import torch
+
+    params = SolverParams(precision=212, word_dtype="float64")
+    k = params.n_words
+    raw = read_sdp(SDP_1D, k=k)
+    shape = memory.shape_of_raw(raw, k, torch.float64)
+    problem = bucketed_problem_from_raw(raw, k, "cpu", torch.float64)
+    est = memory.estimate_solver_memory(shape)
+    assert est.components == memory.estimate_solver_memory(
+        problem).components
+    bk = problem.buckets[0]
+    values = sum(t.numel() // k for t in (bk.c, bk.B, *bk.q, *bk.u))
+    assert est.components["problem data (c,B,q,u)"] == 8 * k * values
+    limb = memory.estimate_solver_memory(memory.shape_of_raw(
+        raw, SolverParams(precision=212).n_words))
+    assert limb.components["problem data (c,B,q,u)"] == \
+        4 * SolverParams(precision=212).n_words * values
+    plain = memory.estimate_solver_memory(shape, plain=True)
+    assert plain.total > est.total
+    assert any(name.startswith("plain ") for name in plain.transients)
+
+
 def test_estimate_grows_with_the_problem_and_the_q_cap_bounds_it():
     k = SolverParams(precision=400).n_words
     small = memory.estimate_solver_memory(_full_width_shape(384, k))
