@@ -8,9 +8,11 @@ Phases, each printing its name and elapsed seconds:
   1. environment: card name and power limit, torch/CUDA versions, mpmath
   2. build: the limb kernels of every slot class (128, 256 and 512
      slots) and the float64-expansion kernels of every word count
-     (K = 1..20) with nvcc, one process per object, all started
+     (K = 1..20: the elementwise kernel, the Cholesky column loop and
+     the substitution) with nvcc, one process per object, all started
      together (registers, stack frame and spills per kernel
-     instantiation; a spill fails the phase)
+     instantiation and per out-of-line function; a spill fails the
+     phase)
   3. kernels against their plain PyTorch versions, bit for bit: the
      factorization kernels at the full-width shapes (S = 47, 400 bits)
      and at S = 26 (--precision 212), S = 116 (--precision 1024),
@@ -22,7 +24,10 @@ Phases, each printing its name and elapsed seconds:
      of a CUDA graph of the calls; the five expansion kernels (add,
      mul, div, add_f64, mul_f64) likewise at (49152, 8) and at 4096
      values for K = 2, 4, 8 and 20, over zeros, cancellation, NaN,
-     +-inf and exponents 2^-500..2^500
+     +-inf and exponents 2^-500..2^500; the expansion Cholesky panel
+     and substitution kernels against their plain loops at the
+     full-width iteration's shapes (K = 8) and at K = 2, 4 and 20, with
+     a non-PD input and NaN and +-inf words, every word's bits
   4. the 1d quickstart SDP end to end through the sdpb CLI entry point
      at the stock contract (--precision 212): PrimalDualOptimal and the
      known objective
@@ -46,11 +51,12 @@ Phases, each printing its name and elapsed seconds:
      (K = 4) to PrimalDualOptimal, against sdpb_tpu's recorded
      expansion run (objective and trajectory); (b) the full-width
      synthetic problem at 400 bits (K = 8) for 1 iteration, its time,
-     phase split and peak memory against the estimate, its first
-     iteration (objectives, mu, beta and the search direction to 1e-30)
-     against phase 5's limb one, and one more iteration under
-     torch.profiler; (c) approx_objective's CLI
-     on the card on the 1d SDP, (a)'s solution and a perturbed SDP
+     phase split, peak memory against the estimate, the expansion
+     kernels' launches by caller (fewer than 5,000 elementwise ones),
+     its first iteration (objectives, mu, beta and the search
+     direction to 1e-30) against phase 5's limb one, and one more
+     iteration under torch.profiler; (c) approx_objective's CLI on
+     the card on the 1d SDP, (a)'s solution and a perturbed SDP
      compiled by pmp2sdp, against the same CLI on the CPU
 
 The line before the last is one JSON object with a record per kernel
@@ -206,7 +212,9 @@ def phase_build():
 def _ptxas_resources(lines):
     """Registers, stack frame and spill bytes per kernel instantiation
     (template arguments R, W and, for the elementwise kernel, the op;
-    K and the op for the expansion kernel), read from the -Xptxas -v
+    K and the op for the expansion kernel; K for the expansion
+    Cholesky and solve kernels and the out-of-line expansion operations
+    they call, ``expn::op_mul<K>`` ...), read from the -Xptxas -v
     lines."""
     out, cur = {}, None
     for line in lines:
@@ -214,10 +222,13 @@ def _ptxas_resources(lines):
                       r"for) '?(\w+)", line)
         if m:
             k = re.search(r"(chol_warp|solve_warp|elementwise_warp|"
-                          r"expansion)_kernelI((?:Li\d+E)+)E", m.group(1))
+                          r"expansion|exp_chol|exp_solve)_kernelI"
+                          r"((?:Li\d+E)+)E", m.group(1))
+            f = re.search(r"4expn\d+(\w+?)ILi(\d+)E", m.group(1))
             cur = (f"{k.group(1)}_kernel<"
                    + ",".join(re.findall(r"Li(\d+)E", k.group(2))) + ">"
-                   if k else None)
+                   if k else f"expn::{f.group(1)}<{f.group(2)}>" if f
+                   else None)
             continue
         if cur is None:
             continue
@@ -393,6 +404,8 @@ def phase_kernels(dev):
     for n, k in EXPANSION_SHAPES:
         for name, recs in _expansion_checks(dev, rng, k, n).items():
             rows.setdefault(name, []).extend(recs)
+    for name, recs in _panel_checks(dev, rng).items():
+        rows.setdefault(name, []).extend(recs)
     phase("3 kernels vs plain", t)
     return rows
 
@@ -597,6 +610,197 @@ def _expansion_checks(dev, rng, k, n):
     return rows
 
 
+# The expansion column-loop kernels: Cholesky panels (batch, R, W, K),
+# R == W the unblocked form, and solves (batch, n, m, K).  The first
+# rows are the full-width iteration's at K = 8: the X and Y blocks of
+# the two buckets (32 and 48 rows), the panels of the Schur complements
+# (96 rows, and 240 padded to 256) and of Q (384) at their first and a
+# middle panel, the solves of the X/Y blocks against N = 384 columns,
+# of the 48-row blocks against 48 and 96, and of one column; then
+# K = 2, 4 and 20 (--precision 1060) at a small batch.
+EXP_CHOL_SHAPES = ((48, 32, 32, 8), (16, 48, 48, 8), (48, 96, 32, 8),
+                   (48, 64, 32, 8), (16, 256, 32, 8), (16, 128, 32, 8),
+                   (1, 384, 32, 8), (1, 192, 32, 8)) + tuple(
+    (2, R, 32, k) for k in (2, 4, 20) for R in (32, 96))
+EXP_SOLVE_SHAPES = ((48, 32, 384, 8), (16, 48, 48, 8), (16, 48, 96, 8),
+                    (1, 32, 1, 8)) + tuple(
+    (2, 32, 16, k) for k in (2, 4, 20)) + ((2, 64, 8, 20),)
+EXP_FULL_WIDTH = {"exp_cholesky_panel": 8, "exp_solve_unblocked": 4}
+
+
+def _exp_sqrt_ops(k):
+    """Float64 operations of one expansion sqrt_rsqrt (mp/core.py):
+    newton_steps(K) steps of three products, an add_f64, an addition
+    and K halvings, then three products, two additions and K
+    halvings."""
+    from sdpb_tpu_torch.mp import core
+
+    if k == 1:
+        return 2
+    mul, add = _exp_ops("exp_mul", k), _exp_ops("exp_add", k)
+    step = 3 * mul + _exp_ops("exp_add_f64", k) + add + k
+    return core.newton_steps(k) * step + 3 * mul + 2 * add + k
+
+
+def _exp_chol_ops(bb, R, W, k):
+    """Float64 operations of the column loop of a (bb, R, W) Cholesky
+    panel: per column t the pivot's sqrt_rsqrt, R - t - 1 products by
+    its rsqrt and one zero addition for each of the column's R - t
+    finished entries (it stops there once an entry is unchanged), and a
+    product and an addition for each lower entry of the columns right
+    of it."""
+    mul, add = _exp_ops("exp_mul", k), _exp_ops("exp_add", k)
+    ops = 0
+    for t in range(W):
+        ops += _exp_sqrt_ops(k) + (R - t - 1) * mul + (R - t) * add
+        ops += sum(R - c for c in range(t + 1, W)) * (mul + add)
+    return bb * ops
+
+
+def _exp_solve_ops(bb, n, m, k, transpose):
+    """Float64 operations of one substitution: per row and column a
+    product for each term found so far, an addition for each pair of
+    the tree sum with such a term in it (a pair of masked +0 terms is
+    skipped), then an addition and a product."""
+    mul, add = _exp_ops("exp_mul", k), _exp_ops("exp_add", k)
+    ops = 0
+    for i in range(n):
+        live = [(j > i) if transpose else (j < i) for j in range(n)]
+        ops += sum(live) * mul + add + mul
+        while len(live) > 1:
+            h = len(live) // 2
+            merged = [live[p] or live[p + h] for p in range(h)]
+            ops += sum(merged) * add
+            live = merged + live[2 * h:]
+    return bb * m * ops
+
+
+def _words_of(rng, a, k, dev):
+    """Float64 values as normalized K-word expansions with random
+    tails, on the device."""
+    import torch
+
+    from sdpb_tpu_torch.mp import core
+
+    w = np.stack([a] + [a * rng.standard_normal(a.shape) * 2.0 ** (-53 * i)
+                        for i in range(1, k)], axis=-1)
+    return core.renorm_words(torch.from_numpy(w), k).to(dev)
+
+
+def _spd_expansions(rng, bb, n, k, dev, cols=None):
+    """An SPD (bb, n, n) matrix, or its first ``cols`` columns, in
+    K-word expansions."""
+    g = rng.standard_normal((bb, n, n))
+    a = g @ g.transpose(0, 2, 1) + n * np.eye(n)
+    return _words_of(rng, a[:, :, :cols or n], k, dev)
+
+
+def _check_bits(name, got, want):
+    """Every word's bits equal, NaN in the same places (any NaN bits)."""
+    import torch
+
+    nan = got.isnan() | want.isnan()
+    if not (torch.equal(got.isnan(), want.isnan()) and torch.equal(
+            got.view(torch.int64)[~nan], want.view(torch.int64)[~nan])):
+        _check_same(name, got, want)
+        raise AssertionError(f"{name} differs from its plain version in "
+                             f"the sign of a zero")
+
+
+def _panel_checks(dev, rng):
+    """exp_cholesky_panel and exp_solve_unblocked against their plain
+    loops, bit for bit with NaN in the same places.  On the card the
+    plain loop is the loop over the elementwise expansion kernels,
+    which this phase holds bit for bit to mp/core.py's plain functions
+    above; the loop over those plain functions themselves would take
+    minutes at these shapes.  Also a non-PD batch (NaN out as the loop
+    gives) and NaN and +-inf words in a panel and in a solve."""
+    import torch
+
+    from sdpb_tpu_torch.mp import core
+    from sdpb_tpu_torch.ops import expansion_kernels as ek
+
+    rows = {}
+    name = "exp_cholesky_panel"
+    for idx, (bb, R, W, k) in enumerate(EXP_CHOL_SHAPES):
+        c = _spd_expansions(rng, bb, R, k, dev, cols=W)
+        got = ek.exp_cholesky_panel(c)
+        want, plain_ms = timed_once(lambda: ek.cholesky_panel_plain(c))
+        _check_bits(f"{name} ({bb},{R},{W},{k})", got, want)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name} ({bb},{R},{W},{k}): non-finite")
+        ms = cuda_ms(lambda: ek.exp_cholesky_panel(c), 3)
+        nbytes, ops = 2 * c.numel() * 8, _exp_chol_ops(bb, R, W, k)
+        bound, by = bound_ms(nbytes, ops, PEAK_F64_PER_S)
+        print(f"{name} ({bb},{R},{W},{k}): bit-exact  kernel {ms:.3f} ms  "
+              f"plain {plain_ms:.1f} ms  bound {bound:.5f} ms ({by})  "
+              f"ratio {ms / bound:.0f}", flush=True)
+        rows.setdefault(name, []).append(dict(
+            shape=[bb, R, W, k], err=0.0, ms=ms, plain_ms=plain_ms,
+            bytes=nbytes, ops=ops, peak=PEAK_F64_PER_S,
+            main=idx < EXP_FULL_WIDTH[name]))
+    for k in (2, 8):
+        bad = _spd_expansions(rng, 3, 32, k, dev)
+        bad[1] = -bad[1]
+        bad[2, 9, 9] = -bad[2, 9, 9]
+        got = ek.exp_cholesky_panel(bad)
+        if not (got[1].isnan().any() and got[2].isnan().any()
+                and torch.isfinite(got[0]).all()):
+            raise AssertionError(f"{name}: a non-PD input did not give NaN")
+        _check_bits(f"{name} non-PD (K = {k})", got,
+                    ek.cholesky_panel_plain(bad))
+        c = _spd_expansions(rng, 2, 96, k, dev, cols=32)
+        c[0, 40, 3, 0], c[0, 70, 5, 0] = math.nan, math.inf
+        c[1, 50, 2, 0] = -math.inf
+        c[1, 60] = 0.0
+        _check_bits(f"{name} NaN/inf words (K = {k})",
+                    ek.exp_cholesky_panel(c), ek.cholesky_panel_plain(c))
+    print(f"{name}: non-PD input gives NaN and NaN/+-inf words match the "
+          f"plain loop", flush=True)
+
+    name = "exp_solve_unblocked"
+    for idx, (bb, n, m, k) in enumerate(EXP_SOLVE_SHAPES):
+        lfac = ek.exp_cholesky_panel(_spd_expansions(rng, bb, n, k, dev))
+        didx = torch.arange(n, device=dev)
+        inv_d = core.recip(lfac[:, didx, didx, :]).contiguous()
+        b = _words_of(rng, rng.standard_normal((bb, n, m)), k, dev)
+        for transpose in (False, True):
+            got = ek.exp_solve_unblocked(lfac, b, inv_d, transpose)
+            want, plain_ms = timed_once(lambda: ek.solve_unblocked_plain(
+                lfac, b, inv_d, transpose))
+            _check_bits(f"{name} ({bb},{n},{m},{k}) T={int(transpose)}",
+                        got, want)
+            ms = cuda_ms(lambda: ek.exp_solve_unblocked(
+                lfac, b, inv_d, transpose), 3)
+            nbytes = (lfac.numel() + 2 * b.numel() + inv_d.numel()) * 8
+            ops = _exp_solve_ops(bb, n, m, k, transpose)
+            bound, by = bound_ms(nbytes, ops, PEAK_F64_PER_S)
+            print(f"{name} ({bb},{n},{n})x{m} K={k} T={int(transpose)}: "
+                  f"bit-exact  tile {ek.solve_tile(n, m, k)}  kernel "
+                  f"{ms:.3f} ms  plain {plain_ms:.1f} ms  bound "
+                  f"{bound:.5f} ms ({by})  ratio {ms / bound:.0f}",
+                  flush=True)
+            rows.setdefault(name, []).append(dict(
+                shape=[bb, n, m, k, int(transpose)], err=0.0, ms=ms,
+                plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                peak=PEAK_F64_PER_S, main=idx < EXP_FULL_WIDTH[name]))
+    for k in (2, 8):
+        lfac = ek.exp_cholesky_panel(_spd_expansions(rng, 2, 32, k, dev))
+        didx = torch.arange(32, device=dev)
+        inv_d = core.recip(lfac[:, didx, didx, :]).contiguous()
+        lfac[0, 20, 3, 0], lfac[1, 25, 7, 0] = math.inf, math.nan
+        b = _words_of(rng, rng.standard_normal((2, 32, 9)), k, dev)
+        b[0, 5, 2, 0] = -math.inf
+        b[1, 4] = 0.0
+        for transpose in (False, True):
+            _check_bits(f"{name} NaN/inf words (K = {k}, T = "
+                        f"{int(transpose)})",
+                        ek.exp_solve_unblocked(lfac, b, inv_d, transpose),
+                        ek.solve_unblocked_plain(lfac, b, inv_d, transpose))
+    print(f"{name}: NaN/+-inf words match the plain loop", flush=True)
+    return rows
+
+
 def phase_1d(dev, out_root: Path):
     t = time.time()
     from sdpb_tpu_torch.apps import sdpb
@@ -796,6 +1000,8 @@ PORT_KERNELS = (
     ("limb_elementwise",
      r"\(anonymous namespace\)::elementwise_warp_kernel<"),
     ("expansion_elementwise", r"\(anonymous namespace\)::expansion_kernel<"),
+    ("exp_cholesky_panel", r"\(anonymous namespace\)::exp_chol_kernel<"),
+    ("exp_solve_unblocked", r"\(anonymous namespace\)::exp_solve_kernel<"),
 )
 PROFILE_CLASSES = (
     ("port_kernels", "|".join(pat for _, pat in PORT_KERNELS)),
@@ -1049,7 +1255,16 @@ def phase_large(dev, n_dual=1024):
 # Phase 8: the float64-expansion format on the card
 # ---------------------------------------------------------------------------
 
-EXP_KERNELS = ("exp_add", "exp_mul", "exp_div", "exp_add_f64", "exp_mul_f64")
+EXP_ELEMENTWISE = ("exp_add", "exp_mul", "exp_div", "exp_add_f64",
+                   "exp_mul_f64")
+EXP_KERNELS = EXP_ELEMENTWISE + ("exp_cholesky_panel", "exp_solve_unblocked")
+# The kernels the expansion solves launch: exp_add_f64's one caller on
+# these paths was the pivots' sqrt_rsqrt, which runs inside
+# exp_cholesky_panel (add_diag's shifts there are MP values).
+EXP_PATH_KERNELS = tuple(n for n in EXP_KERNELS if n != "exp_add_f64")
+# Phase 8b's gate: elementwise expansion launches of one full-width
+# iteration (85,585 when the column loops were launch sequences).
+EXP_ELEMENTWISE_MAX = 5000
 
 
 def _mpf400(text):
@@ -1069,6 +1284,42 @@ def _require_launches(label, launches, names):
     missing = [n for n in names if launches.get(n, 0) <= 0]
     if missing:
         raise AssertionError(f"{label} did not launch {missing}: {launches}")
+
+
+class _LaunchCallers:
+    """Counts the expansion kernels' launches by the function that asked
+    for them: the first frame outside mp/core.py and
+    ops/expansion_kernels.py (``module.function``), per kernel."""
+
+    def __enter__(self):
+        from sdpb_tpu_torch.mp import core
+        from sdpb_tpu_torch.ops import expansion_kernels as ek
+
+        self.counts = {}
+        self._inner = inner = ek._status
+        skip = {core.__file__, ek.__file__}
+
+        def status(name, err):
+            f = sys._getframe(1)
+            while f.f_code.co_filename in skip:
+                f = f.f_back
+            key = f"{Path(f.f_code.co_filename).stem}.{f.f_code.co_name}"
+            per = self.counts.setdefault(key, {})
+            per[name] = per.get(name, 0) + 1
+            return inner(name, err)
+
+        ek._status = status
+        return self
+
+    def __exit__(self, *exc):
+        from sdpb_tpu_torch.ops import expansion_kernels as ek
+
+        ek._status = self._inner
+
+    def report(self):
+        """{caller: {kernel: launches}}, the callers by launches."""
+        return dict(sorted(self.counts.items(),
+                           key=lambda kv: -sum(kv[1].values())))
 
 
 def _check_exp_trajectory(records, ref):
@@ -1142,7 +1393,7 @@ def _expansion_1d(dev, out_root: Path):
     if any(lk.LAUNCHES.values()):
         raise AssertionError(f"the expansion solve launched limb kernels: "
                              f"{lk.LAUNCHES}")
-    _require_launches("expansion 1d", launches, EXP_KERNELS)
+    _require_launches("expansion 1d", launches, EXP_PATH_KERNELS)
     if result.reason.name != "PrimalDualOptimal":
         raise AssertionError(f"expansion 1d ended {result.reason.name}")
     diff = abs(_mpf400(result.primal_objective)
@@ -1194,13 +1445,20 @@ def _expansion_full(dev, limb_first, limb_direction):
     timers = Timers()
     ek.reset_launches()
     t0 = time.time()
-    with _FirstDirection() as direction:
+    with _FirstDirection() as direction, _LaunchCallers() as callers:
         result = driver.solve(problem, params, state=state, timers=timers)
         torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = dict(ek.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    _require_launches("expansion full width", launches, EXP_KERNELS)
+    _require_launches("expansion full width", launches, EXP_PATH_KERNELS)
+    elementwise = sum(launches[n] for n in EXP_ELEMENTWISE)
+    print(f"(b) expansion launches by caller: {json.dumps(callers.report())}",
+          flush=True)
+    if elementwise >= EXP_ELEMENTWISE_MAX:
+        raise AssertionError(f"expansion full width: {elementwise} "
+                             f"elementwise expansion launches an iteration "
+                             f"(at most {EXP_ELEMENTWISE_MAX - 1})")
     if len(result.iterations) != 1:
         raise AssertionError(f"expansion full width ran "
                              f"{len(result.iterations)} iterations")
@@ -1295,7 +1553,8 @@ def _expansion_approx(dev, out_root: Path, sol_dir: Path):
     seconds = time.time() - t0
     launches = dict(ek.LAUNCHES)
     _require_launches("approx_objective", launches,
-                      ("exp_add", "exp_mul", "exp_div", "exp_add_f64"))
+                      ("exp_add", "exp_mul", "exp_div", "exp_cholesky_panel",
+                       "exp_solve_unblocked"))
     cpu = _run_json(lambda a: approx_objective.main(a, device="cpu"), argv)
     worst = {}
     for key, tol in (("d_objective", 1e-60), ("dd_objective", 1e-30),
@@ -1355,12 +1614,17 @@ def kernel_json(rows, paths):
         "exp_mul": "sdpb_tpu/mp/core.py:487",
         "exp_mul_f64": "sdpb_tpu/mp/core.py:516",
         "exp_div": "sdpb_tpu/mp/core.py:558",
+        "exp_cholesky_panel": "sdpb_tpu/mp/linalg.py:207",
+        "exp_solve_unblocked": "sdpb_tpu/mp/linalg.py:354",
     }
     sources = {"cholesky_unblocked_batched": "sdpb_tpu_torch/csrc/limb_chol.cu",
                "solve_unblocked_batched": "sdpb_tpu_torch/csrc/limb_solve.cu",
                "limb_add": "sdpb_tpu_torch/csrc/limb_elementwise.cu",
                "limb_mul": "sdpb_tpu_torch/csrc/limb_elementwise.cu",
-               "limb_div": "sdpb_tpu_torch/csrc/limb_elementwise.cu"}
+               "limb_div": "sdpb_tpu_torch/csrc/limb_elementwise.cu",
+               "exp_cholesky_panel": "sdpb_tpu_torch/csrc/expansion_chol.cu",
+               "exp_solve_unblocked":
+                   "sdpb_tpu_torch/csrc/expansion_solve.cu"}
     out = []
     for name, recs in rows.items():
         rec = max((r for r in recs if r["main"]), key=lambda r: r["ops"])

@@ -237,6 +237,7 @@ def main(argv=None, device=None) -> int:
     from ..mp import decimal as mpdec
     from ..pmp.read import expand_nsv
     from ..solver.data import problem_from_raw
+    from ..solver.memory import crt_rows, max_crt_precision, shape_of_raw
     from ..solver.params import SolverParams
 
     device = resolve_device(device)
@@ -251,6 +252,15 @@ def main(argv=None, device=None) -> int:
         sdp_path.parent / (sdp_path.name + "_out")
 
     raw = read_sdp(sdp_path, k=k)
+    limit = max_crt_precision(
+        lambda p: SolverParams(precision=p, word_dtype="float64").n_words,
+        torch.float64, crt_rows(shape_of_raw(raw, k, torch.float64)))
+    if args.precision > limit:
+        print(f"approx_objective: --precision {args.precision} needs a "
+              f"larger CRT modulus than the prime pool (ops/exact.py) "
+              f"holds for this SDP; the largest precision it takes is "
+              f"{limit}", file=sys.stderr)
+        return 2
     problem = problem_from_raw(raw, device, torch.float64, k)
     x, y = read_solution_vectors(solution_dir, problem, k)
 

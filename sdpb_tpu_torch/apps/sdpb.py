@@ -12,9 +12,11 @@ directory (default <sdpDir sibling>/ck) a checkpoint every
 unless --noFinalCheckpoint, and block_timings after every solve.  A run
 restarts from -i, or from an existing ck/checkpoint.json.  The memory
 estimate is checked against the device's free memory before anything is
-allocated there (exit 1 over it).  On the card, --precision above the
-limb kernels' largest slot class (ops/limb_kernels.py) is refused at
-startup; the CPU's expansion format has no cap.
+allocated there (exit 1 over it).  --precision is refused at startup
+(exit 2, naming the limit) above what the CRT prime pool
+(ops/exact.py) holds for the SDP's sizes, ~2800 bits, in either
+format, and on the card above the limb kernels' largest slot class
+(ops/limb_kernels.py).
 
 Not in this port yet (exit 2, naming the missing module): multi-device
 solves (parallel/, with the intra-block fallback).
@@ -38,7 +40,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--outDir", default=None,
                    help="Output directory (default: <sdpDir sibling>/out)")
     p.add_argument("-p", "--precision", type=int, default=400,
-                   help="Binary precision (bits)")
+                   help="Binary precision (bits); at most what the CRT "
+                        "prime pool holds for the SDP (~2800)")
     p.add_argument("--maxIterations", type=int, default=500)
     p.add_argument("--maxRuntime", type=float, default=2 ** 53)
     p.add_argument("--checkpointInterval", type=float, default=3600,
@@ -105,8 +108,9 @@ def main(argv=None, device=None) -> int:
         device, word_dtype = "cpu", "float64"
     if word_dtype == "float32" and args.precision > max_precision_bits():
         print(f"sdpb: --precision {args.precision} needs more than the "
-              f"{MAX_SLOTS} slots of the largest kernel class; the largest "
-              f"precision this port takes is {max_precision_bits()}",
+              f"{MAX_SLOTS} slots of the largest kernel class, which holds "
+              f"{max_precision_bits()} bits; the CRT prime pool holds less "
+              f"(~2800 bits, the limit named once the SDP is read)",
               file=sys.stderr)
         return 2
     sdp_dir = pathlib.Path(args.sdpDir)
@@ -132,7 +136,7 @@ def main(argv=None, device=None) -> int:
     from ..solver.data import bucketed_problem_from_raw
     from ..solver.driver import NonFiniteIterateError, solve
     from ..solver.memory import (MemoryLimitError, check_memory_limit,
-                                 shape_of_raw)
+                                 crt_rows, max_crt_precision, shape_of_raw)
     from ..solver.params import SolverParams
     from ..utils.timers import Timers, Verbosity, rotate_profiling_dir
 
@@ -162,10 +166,20 @@ def main(argv=None, device=None) -> int:
 
     t_start = time.time()
     raw = read_sdp(sdp_dir, k=params.n_read_words)
+    shape = shape_of_raw(raw, params.n_words, params.dtype)
+    limit = max_crt_precision(
+        lambda p: SolverParams(precision=p, word_dtype=word_dtype).n_words,
+        params.dtype, crt_rows(shape))
+    if args.precision > limit:
+        print(f"sdpb: --precision {args.precision} needs a larger CRT "
+              f"modulus than the prime pool (ops/exact.py) holds for this "
+              f"SDP; the largest precision it takes is {limit}",
+              file=sys.stderr)
+        return 2
     # fail fast, before anything is allocated on the device
     # (`run.cxx:80-183`)
     try:
-        check_memory_limit(shape_of_raw(raw, params.n_words, params.dtype),
+        check_memory_limit(shape,
                            device=device,
                            verbose=args.verbosity >= 2,
                            q_bytes_cap=args.maxSharedMemory)

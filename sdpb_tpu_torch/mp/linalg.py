@@ -12,9 +12,10 @@ route the accelerator takes there:
   any number of rows, and ``lower_inverse`` builds L^-1 from
   kernel-inverted diagonal blocks;
 - for float64 expansions they are the JAX package's own expansion
-  routes, column and row loops of elementwise MP operations (each one
-  kernel launch on the card) inside panels of 32, written over a
-  leading batch axis where the JAX package vmaps.
+  routes, written over a leading batch axis where the JAX package
+  vmaps: panels of 32 around the column loops of the Cholesky and the
+  substitution, each loop one launch of its kernel
+  (``ops/expansion_kernels.py``) on the card.
 
 Routing follows the tensor's device, not a global: CUDA tensors launch
 the kernels, CPU tensors run their plain versions, and both take the
@@ -28,6 +29,7 @@ import math
 import torch
 
 from . import core
+from ..ops import expansion_kernels as ek
 from ..ops import limb_kernels as lk
 
 # Contraction chunk of the plain limb matmul: bounds its product tensor.
@@ -322,8 +324,8 @@ def solve_lower_t(l, b):
 
 
 # ---------------------------------------------------------------------------
-# The expansion routes (float64 words): the JAX package's unblocked loops
-# and panel loops, vectorized over a leading batch axis BB
+# The expansion routes (float64 words): the JAX package's panel loops
+# around the column-loop kernels, over a leading batch axis BB
 # ---------------------------------------------------------------------------
 
 def _lower_mask(n: int, device):
@@ -331,79 +333,31 @@ def _lower_mask(n: int, device):
     return (rows[:, None] >= rows[None, :])[:, :, None]
 
 
-def _cholesky_exp_unblocked(a):
-    """Right-looking Cholesky of a (BB, n, n, K): pivot by sqrt_rsqrt,
-    the column scaled by the pivot's rsqrt, the rank-1 update added to
-    the whole matrix under the trailing mask."""
-    n = a.shape[1]
-    rows = torch.arange(n, device=a.device)
-    mat = a.clone()
-    for j in range(n):
-        d, dinv = core.sqrt_rsqrt(mat[:, j, j])
-        col = core.mul(mat[:, :, j], dinv[:, None, :])
-        below = rows > j
-        col = torch.where(below[:, None], col,
-                          torch.where((rows == j)[:, None], d[:, None, :],
-                                      0.0))
-        mat[:, :, j] = col
-        upd = core.mul(col[:, :, None, :], col[:, None, :, :])
-        mask = (below[:, None] & below[None, :])[:, :, None]
-        mat = core.add(mat, torch.where(mask, -upd, 0.0))
-    return torch.where(_lower_mask(n, a.device), mat, 0.0)
-
-
 def _cholesky_exp_batched(a):
-    """Panel-blocked right-looking Cholesky of a (BB, n, n, K): the
-    panel's columns by ``col_step``, the trailing update one SYRK of the
-    panel added to the whole matrix (the JAX package's loop)."""
+    """Panel-blocked right-looking Cholesky of a (BB, n, n, K): a
+    panel's column loop by the panel kernel, on the panel's rows from
+    its pivot block down, then the trailing update, one SYRK of the
+    panel added to the whole matrix (the JAX package's loop).  The
+    JAX package's panel also carries the rows above it, zeroed; they
+    and the pivot block's upper triangle are upper entries, never read
+    and dropped at the end, so the factor's bits are the same."""
     n, nb = a.shape[1], _PANEL
     if n <= 2 * nb:
-        return _cholesky_exp_unblocked(a)
+        return ek.exp_cholesky_panel(a)
     npad = (-n) % nb
     mat = _pad_identity(a, npad) if npad else a.clone()
     N = n + npad
-    rows = torch.arange(N, device=a.device)
-    cidx = torch.arange(nb, device=a.device)
     for pi in range(N // nb):
         j = pi * nb
-        C = torch.where((rows >= j)[:, None, None], mat[:, :, j:j + nb], 0.0)
-        for t in range(nb):
-            d, dinv = core.sqrt_rsqrt(C[:, j + t, t])
-            col = core.mul(C[:, :, t], dinv[:, None, :])
-            below = rows > (j + t)
-            col = torch.where(below[:, None], col,
-                              torch.where((rows == j + t)[:, None],
-                                          d[:, None, :], 0.0))
-            C[:, :, t] = col
-            upd = core.mul(col[:, :, None, :], col[:, None, j:j + nb, :])
-            C = core.add(C, torch.where((cidx > t)[None, :, None], -upd,
-                                        0.0))
-        mat[:, :, j:j + nb] = C
-        P = torch.where((rows >= j + nb)[:, None, None], C, 0.0)
+        C = ek.exp_cholesky_panel(mat[:, j:, j:j + nb])
+        mat[:, j:, j:j + nb] = C
+        P = torch.zeros_like(mat[:, :, :nb])
+        P[:, j + nb:] = C[:, nb:]
         upd = _product(P, P.transpose(1, 2),
                        _int_backend_ok(P.shape[1:], N), syrk=True)
         mat = core.add(mat, core.neg(upd))
     out = torch.where(_lower_mask(N, a.device), mat, 0.0)
     return out[:, :n, :n] if npad else out
-
-
-def _solve_exp_unblocked(l, b, inv_d, transpose: bool):
-    """X = L^{-1} B (or L^{-T} B) by substitution, one row a step:
-    the row's dot product with the rows found so far (a tree sum),
-    subtracted from B's row, times the diagonal reciprocal."""
-    n = b.shape[1]
-    rows = torch.arange(n, device=b.device)
-    x = torch.zeros_like(b)
-    for t in range(n):
-        i = n - 1 - t if transpose else t
-        if transpose:
-            li = torch.where((rows > i)[:, None], l[:, :, i, :], 0.0)
-        else:
-            li = torch.where((rows < i)[:, None], l[:, i, :, :], 0.0)
-        acc = core.sum_(core.mul(li[:, :, None, :], x), axis=1)
-        s = core.sub(b[:, i], acc)
-        x[:, i] = core.mul(s, inv_d[:, i, None, :])
-    return x
 
 
 def _solve_exp_batched(l, b, transpose: bool):
@@ -415,8 +369,8 @@ def _solve_exp_batched(l, b, transpose: bool):
     nb = _PANEL
     if n <= 2 * nb:
         didx = torch.arange(n, device=l.device)
-        return _solve_exp_unblocked(l, b, core.recip(l[:, didx, didx, :]),
-                                    transpose)
+        return ek.exp_solve_unblocked(l, b, core.recip(l[:, didx, didx, :]),
+                                      transpose)
     npad = (-n) % nb
     if npad:
         l = _pad_identity(l, npad)
@@ -430,8 +384,8 @@ def _solve_exp_batched(l, b, transpose: bool):
     for t in range(npanels):
         pi = npanels - 1 - t if transpose else t
         j, e = pi * nb, (pi + 1) * nb
-        xp = _solve_exp_unblocked(l[:, j:e, j:e], x[:, j:e], inv_d[:, j:e],
-                                  transpose)
+        xp = ek.exp_solve_unblocked(l[:, j:e, j:e], x[:, j:e],
+                                    inv_d[:, j:e], transpose)
         x[:, j:e] = xp
         if transpose:
             lpart = torch.where((rows < j)[None, :, None], l[:, j:e],
@@ -461,11 +415,11 @@ def lower_inverse(l):
 
 
 def _unblocked_inverse(l, eye, inv_d):
-    """L^-1 of small lower-triangular blocks against an identity rhs:
-    the solve kernel for limbs, the substitution loop for expansions."""
+    """L^-1 of small lower-triangular blocks against an identity rhs
+    through the solve kernel of the format."""
     if core.is_limb(l):
         return lk.solve_unblocked_batched(l.contiguous(), eye, inv_d)
-    return _solve_exp_unblocked(l, eye, inv_d, transpose=False)
+    return ek.exp_solve_unblocked(l, eye, inv_d)
 
 
 def _lower_inverse_batched(l):

@@ -1,5 +1,5 @@
-"""Float64-expansion elementwise CUDA kernels for Hopper, the build and
-the loader.
+"""Float64-expansion CUDA kernels for Hopper, their column loops' plain
+PyTorch versions, and the build and loader.
 
 ``exp_add``, ``exp_mul``, ``exp_div``, ``exp_add_f64`` and
 ``exp_mul_f64`` run one expansion operation per launch, one value per
@@ -8,7 +8,15 @@ where the JAX package leaves the expansion arithmetic of
 ``sdpb_tpu/mp/core.py`` to XLA fusions.  Their plain PyTorch versions
 are ``mp/core.py``'s ``add_plain`` ... ``mul_f64_plain``.
 
-The unit is compiled once for every word count K in 1..MAX_WORDS
+``exp_cholesky_panel`` and ``exp_solve_unblocked`` run a whole column
+loop of the expansion Cholesky and of the triangular substitution per
+launch (``csrc/expansion_chol.cu``, ``csrc/expansion_solve.cu`` over
+``csrc/expansion_panels.cuh``), where the JAX package's ``fori_loop``s
+are one XLA program.  Their plain versions, ``cholesky_panel_plain``
+and ``solve_unblocked_plain``, are the loops over the elementwise
+operations.
+
+Each unit is compiled once for every word count K in 1..MAX_WORDS
 (``-DEXP_K``), all with ``nvcc`` at first use and all at once, and
 linked into one shared library (``csrc/build/``, keyed by sources and
 flags) called through ``ctypes``; no PyTorch header is involved.
@@ -33,15 +41,28 @@ import torch
 from ..mp import core
 from .limb_kernels import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc, _status
 
-SOURCES = ("expansion.cuh", "expansion_elementwise.cu")
-UNIT = "expansion_elementwise.cu"
+SOURCES = ("expansion.cuh", "expansion_panels.cuh",
+           "expansion_elementwise.cu", "expansion_chol.cu",
+           "expansion_solve.cu")
+# Each unit is compiled once per K (-DEXP_K); the elementwise unit's
+# K = 1 object also carries the library's entry points.
+UNITS = ("expansion_elementwise.cu", "expansion_chol.cu",
+         "expansion_solve.cu")
 # csrc/expansion.cuh kMaxWords: K = 20 holds --precision 1060.
 MAX_WORDS = 20
 # csrc/expansion_elementwise.cu kThreads: threads a block, one value each.
 EXPANSION_THREADS = 128
+# The column-loop kernels (csrc/expansion_chol.cu, expansion_solve.cu):
+# rows below the pivot block a Cholesky block takes, right-hand-side
+# columns a solve block takes at most, and the shared memory of the
+# solve's tree (n x tile values of K words).
+CHOL_ROW_TILE = 32
+SOLVE_MAX_TILE = 16
+SOLVE_SMEM = 48 * 1024
 
 LAUNCHES = {"exp_add": 0, "exp_mul": 0, "exp_div": 0, "exp_add_f64": 0,
-            "exp_mul_f64": 0}
+            "exp_mul_f64": 0, "exp_cholesky_panel": 0,
+            "exp_solve_unblocked": 0}
 _OPS = {"exp_add": 0, "exp_mul": 1, "exp_div": 2, "exp_add_f64": 3,
         "exp_mul_f64": 4}
 
@@ -75,9 +96,9 @@ def _library_path() -> Path:
 
 
 def build(force: bool = False) -> dict:
-    """Compile the unit for every K into ``csrc/build/`` unless a
+    """Compile the units for every K into ``csrc/build/`` unless a
     library built from the same sources and flags exists: one
-    ``nvcc -c`` per K, all started together, then one link.  Returns
+    ``nvcc -c`` per unit and K, all started together, then one link.  Returns
     the build record (seconds, the ``-Xptxas -v`` resource lines, the
     library path)."""
     lib = _library_path()
@@ -88,15 +109,17 @@ def build(force: bool = False) -> dict:
     pid = os.getpid()
     t0 = time.time()
     jobs = []
-    for k in range(1, MAX_WORDS + 1):
-        obj = BUILD_DIR / f"expansion_k{k}.{pid}.o"
-        extra = [f"-DEXP_K={k}"] + (["-DEXP_CLASS_ENTRIES"] if k == 1
-                                    else [])
-        cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-Xptxas", "-v", "-c", "-o",
-               str(obj), str(CSRC / UNIT)]
-        jobs.append((obj, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)))
+    for unit in UNITS:
+        for k in range(1, MAX_WORDS + 1):
+            obj = BUILD_DIR / f"{Path(unit).stem}_k{k}.{pid}.o"
+            extra = [f"-DEXP_K={k}"] + (
+                ["-DEXP_CLASS_ENTRIES"] if k == 1 and unit == UNITS[0]
+                else [])
+            cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-Xptxas", "-v", "-c",
+                   "-o", str(obj), str(CSRC / unit)]
+            jobs.append((obj, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
     failure, lines = None, []
     for obj, cmd, proc in jobs:
         stdout, err = proc.communicate()
@@ -106,7 +129,7 @@ def build(force: bool = False) -> dict:
                        f"{err}")
         lines += [ln.strip() for ln in err.splitlines()
                   if re.search(r"registers|spill|Compiling entry|"
-                               r"stack frame", ln)]
+                               r"Function properties|stack frame", ln)]
     if failure is not None:
         for obj, _, _ in jobs:
             obj.unlink(missing_ok=True)
@@ -132,9 +155,14 @@ def _lib():
     lib = ctypes.CDLL(build()["library"])
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     for k in range(1, MAX_WORDS + 1):
-        fn = getattr(lib, f"expansion_launch_k{k}")
-        fn.argtypes = [vp, cl, vp, cl, vp, cl, ci, ci, vp]
-        fn.restype = ci
+        for name, args in (
+                ("expansion_launch", [vp, cl, vp, cl, vp, cl, ci, ci, vp]),
+                ("expansion_chol", [vp, vp, vp, ci, ci, ci, ci, ci, vp]),
+                ("expansion_solve", [vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                     vp])):
+            fn = getattr(lib, f"{name}_k{k}")
+            fn.argtypes = args
+            fn.restype = ci
     lib.expansion_max_words.restype = ci
     lib.expansion_threads.restype = ci
     if (lib.expansion_max_words(), lib.expansion_threads()) != (
@@ -231,3 +259,114 @@ def exp_add_f64(a, x):
 def exp_mul_f64(a, x):
     """a * x for a float64 tensor x over a's batch axes."""
     return _with_float("exp_mul_f64", a, x, core.mul_f64_plain)
+
+
+# ---------------------------------------------------------------------------
+# The column loops: a whole Cholesky panel, a whole substitution per launch
+# ---------------------------------------------------------------------------
+
+def cholesky_panel_plain(c):
+    """Plain PyTorch version of ``exp_cholesky_panel``: the column loop
+    of a Cholesky panel c (BB, R, W, K), R >= W, whose first W rows are
+    the pivot block (the JAX package's ``col_step``; with R == W the
+    unblocked right-looking Cholesky).  Per column t: the pivot's
+    sqrt_rsqrt, the column below it times the pivot's rsqrt, and the
+    rank-1 update added under the mask of columns > t.  The pivot
+    block's upper triangle comes out +0: the blocked Cholesky reads
+    only the lower one.  A non-PD input gives NaNs."""
+    BB, R, W, k = c.shape
+    rows = torch.arange(R, device=c.device)
+    cidx = torch.arange(W, device=c.device)
+    C = c.clone()
+    for t in range(W):
+        d, dinv = core.sqrt_rsqrt(C[:, t, t])
+        col = core.mul(C[:, :, t], dinv[:, None, :])
+        col = torch.where((rows > t)[:, None], col,
+                          torch.where((rows == t)[:, None], d[:, None, :],
+                                      0.0))
+        C[:, :, t] = col
+        upd = core.mul(col[:, :, None, :], col[:, None, :W, :])
+        C = core.add(C, torch.where((cidx > t)[None, :, None], -upd, 0.0))
+    upper = (rows[:W, None] < cidx[None, :])[:, :, None]
+    C[:, :W] = torch.where(upper, 0.0, C[:, :W])
+    return C
+
+
+def solve_unblocked_plain(l, b, inv_d, transpose: bool = False):
+    """Plain PyTorch version of ``exp_solve_unblocked``: X = L^-1 B (or
+    L^-T B) by substitution, l (BB, n, n, K), b (BB, n, m, K), inv_d
+    (BB, n, K), one row a step: the row's products with the rows found
+    so far (the masked ones +0), their tree sum, subtracted from B's
+    row, times the diagonal reciprocal."""
+    n = b.shape[1]
+    rows = torch.arange(n, device=b.device)
+    x = torch.zeros_like(b)
+    for t in range(n):
+        i = n - 1 - t if transpose else t
+        if transpose:
+            li = torch.where((rows > i)[:, None], l[:, :, i, :], 0.0)
+        else:
+            li = torch.where((rows < i)[:, None], l[:, i, :, :], 0.0)
+        acc = core.sum_(core.mul(li[:, :, None, :], x), axis=1)
+        s = core.sub(b[:, i], acc)
+        x[:, i] = core.mul(s, inv_d[:, i, None, :])
+    return x
+
+
+def exp_cholesky_panel(c):
+    """The column loop of a Cholesky panel c (BB, R, W, K) in one launch
+    (``cholesky_panel_plain`` on the CPU): one block per batch element
+    and tile of CHOL_ROW_TILE rows below the pivot block."""
+    if not _on_cuda("exp_cholesky_panel", c):
+        return cholesky_panel_plain(c)
+    BB, R, W, k = c.shape
+    if R < W:
+        raise ValueError(f"exp_cholesky_panel: {R} rows < {W} columns")
+    check_words("exp_cholesky_panel", k)
+    c = c.contiguous()
+    out = torch.empty_like(c)
+    if out.numel() == 0:
+        return out
+    tiles = max(1, -(-(R - W) // CHOL_ROW_TILE))
+    # the private pivot blocks of every block but a panel's first
+    scratch = torch.empty(((tiles - 1) * BB, W, W, k), dtype=c.dtype,
+                          device=c.device)
+    err = getattr(_lib(), f"expansion_chol_k{k}")(
+        c.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if tiles > 1 else None, BB, R, W, tiles,
+        CHOL_ROW_TILE, torch.cuda.current_stream(c.device).cuda_stream)
+    _status("exp_cholesky_panel", err)
+    LAUNCHES["exp_cholesky_panel"] += 1
+    return out
+
+
+def solve_tile(n: int, m: int, k: int) -> int:
+    """Right-hand-side columns a solve block takes: at most
+    SOLVE_MAX_TILE, and n x tile values of K words in SOLVE_SMEM."""
+    return max(1, min(m, SOLVE_MAX_TILE, SOLVE_SMEM // (n * k * 8)))
+
+
+def exp_solve_unblocked(l, b, inv_d, transpose: bool = False):
+    """X = L^-1 B (or L^-T B) by substitution in one launch
+    (``solve_unblocked_plain`` on the CPU): l (BB, n, n, K) lower, b
+    (BB, n, m, K), inv_d (BB, n, K) the diagonal's reciprocals."""
+    if not _on_cuda("exp_solve_unblocked", l, b, inv_d):
+        return solve_unblocked_plain(l, b, inv_d, transpose)
+    BB, n, m, k = b.shape
+    if l.shape != (BB, n, n, k) or inv_d.shape != (BB, n, k):
+        raise ValueError(f"exp_solve_unblocked: shapes {tuple(l.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(inv_d.shape)}")
+    check_words("exp_solve_unblocked", k)
+    tm = solve_tile(n, m, k)
+    l, b, inv_d = l.contiguous(), b.contiguous(), inv_d.contiguous()
+    out = torch.empty_like(b)
+    if out.numel() == 0:
+        return out
+    # the launcher refuses a tree above 48 KB (n > 307 rows at K = 20)
+    err = getattr(_lib(), f"expansion_solve_k{k}")(
+        l.data_ptr(), b.data_ptr(), inv_d.data_ptr(), out.data_ptr(), BB, n,
+        m, tm, int(transpose),
+        torch.cuda.current_stream(b.device).cuda_stream)
+    _status("exp_solve_unblocked", err)
+    LAUNCHES["exp_solve_unblocked"] += 1
+    return out

@@ -52,7 +52,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Slot classes: the capacity (csrc/limb.cuh kMaxSlots) of each library
 # that build() makes.  --precision 1024 needs S = 116, 2048 S = 230 and
-# 4096 S = 458; the largest class, 512 slots, takes --precision 4590.
+# 4096 S = 458; the largest class, 512 slots, holds --precision 4590
+# (the CRT prime pool, ops/exact.py, stops a solve near 2800).
 SLOT_CLASSES = (128, 256, 512)
 MAX_SLOTS = SLOT_CLASSES[-1]
 MIN_SLOTS = 4

@@ -133,6 +133,35 @@ def _plan(k: int, n_rows: int, dtype):
     return mpmm.plan_for(core.precision_bits_of(k, dtype), n_rows)
 
 
+def crt_rows(shape) -> int:
+    """The longest contraction of the solver's CRT products: Q's (the
+    Schur rows of every block) or the dual dimension."""
+    total = sum(bk.nb * bk.shape.schur_size for bk in shape.buckets)
+    return max(total, int(shape.dual_dim), 1)
+
+
+def max_crt_precision(words_for, dtype, n_rows: int) -> int:
+    """The largest precision p whose CRT products the prime pool of
+    ``ops/exact.py`` holds at contraction ``n_rows``, with
+    ``words_for(p)`` words of ``dtype`` a value: the plan's modulus
+    needs twice the input bits plus log2 of the rows, so the limit
+    falls as the problem grows."""
+    def holds(p):
+        try:
+            _plan(words_for(p), n_rows, dtype).primes
+        except ValueError:
+            return False
+        return True
+
+    lo, hi = 1, 1 << 16
+    if holds(hi):
+        return hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if holds(mid) else (lo, mid)
+    return lo
+
+
 def _stage_bytes(k: int, n_rows: int, dtype) -> dict:
     """Bytes per value at the widest point of each stage of one CRT
     product with contraction ``n_rows`` (ops/mpmm.py, ops/exact.py)."""

@@ -1,0 +1,331 @@
+"""The float64-expansion column-loop kernels' code against their plain
+loops, on the CPU.
+
+``csrc/expansion_panels.cuh`` holds what one thread block of
+``csrc/expansion_chol.cu`` and ``csrc/expansion_solve.cu`` does, written
+against a thread index and a barrier.  Here it is compiled with g++
+-ffp-contract=off (nvcc runs with -fmad=false), each block run by
+several host threads with a ``std::barrier`` as ``__syncthreads()``,
+the blocks one after another in reverse order (a block that read
+another's output would see it unwritten), and held bit for bit, NaN
+positions included, against ``cholesky_panel_plain`` and
+``solve_unblocked_plain`` (ops/expansion_kernels.py): the unblocked
+Cholesky (R == W == n), tall panels (R > W, several row tiles), and
+both solve orientations with several column tiles.
+
+The pivots' sqrt_rsqrt starts from torch.rsqrt of the leading word,
+which on the CPU is 1 / sqrt (one rounding each), and the host build
+seeds with that expression: ``test_host_seed_is_torch_rsqrt`` holds
+the two to the same bits.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from sdpb_tpu_torch.mp import core
+from sdpb_tpu_torch.mp import linalg as la
+from sdpb_tpu_torch.ops import expansion_kernels as ek
+
+from torch_port_util import one_torch_thread  # noqa: F401,E402
+
+HOST_KS = (2, 4, 8)
+THREADS = 4
+
+HARNESS = r"""
+#include <algorithm>
+#include <barrier>
+#include <thread>
+#include <vector>
+
+static std::barrier<>* g_sync;
+#define EXP_HD inline
+#define EXP_BLOCK inline
+#define EXP_OP inline
+#define EXP_SYNC() g_sync->arrive_and_wait()
+#include "expansion_panels.cuh"
+
+// One block: ``nthreads`` host threads on the body, the barrier as
+// __syncthreads().
+template <class F>
+static void run_block(int nthreads, F body) {
+  std::barrier<> sync(nthreads);
+  g_sync = &sync;
+  std::vector<std::thread> threads;
+  for (int t = 0; t < nthreads; ++t) threads.emplace_back(body, t);
+  for (auto& t : threads) t.join();
+}
+
+// csrc/expansion_chol.cu's grid: block b * tiles + tile.
+template <int K>
+static void chol(const double* in, double* out, int bb, int R, int W,
+                 int rt, int nthreads) {
+  const int tiles = std::max(1, (R - W + rt - 1) / rt);
+  std::vector<double> scratch((size_t)std::max(1, bb * (tiles - 1)) * W * W
+                              * K);
+  for (int blk = bb * tiles - 1; blk >= 0; --blk) {
+    const int b = blk / tiles, tile = blk % tiles;
+    const long panel = (long)R * W * K;
+    const int row0 = W + tile * rt;
+    const int nt = std::max(0, std::min(rt, R - row0));
+    double* diag = tile == 0 ? out + b * panel
+        : scratch.data() + ((long)b * (tiles - 1) + tile - 1) * W * W * K;
+    std::vector<double> sh((size_t)(W + rt + 2) * K);
+    run_block(nthreads, [&](int tid) {
+      expn::chol_panel_block<K>(in + b * panel, in + b * panel
+                                + (long)row0 * W * K, diag, out + b * panel
+                                + (long)row0 * W * K, W, nt, sh.data(), tid,
+                                nthreads);
+    });
+  }
+}
+
+// csrc/expansion_solve.cu's grid: block b * tiles + tile.
+template <int K>
+static void solve(const double* L, const double* B, const double* inv_d,
+                  double* X, int bb, int n, int m, int tm, int transpose,
+                  int nthreads) {
+  const int tiles = (m + tm - 1) / tm;
+  for (int blk = bb * tiles - 1; blk >= 0; --blk) {
+    const int b = blk / tiles, col0 = (blk % tiles) * tm;
+    std::vector<double> tree((size_t)n * tm * K);
+    const long nm = (long)n * m * K;
+    run_block(nthreads, [&](int tid) {
+      expn::solve_block<K>(L + (long)b * n * n * K, B + b * nm,
+                           inv_d + (long)b * n * K, X + b * nm, n, m, col0,
+                           std::min(tm, m - col0), transpose != 0,
+                           tree.data(), tid, nthreads);
+    });
+  }
+}
+
+extern "C" int host_chol(int k, const double* in, double* out, int bb, int R,
+                         int W, int rt, int nthreads) {
+  switch (k) {
+    CHOL_CASES
+  }
+  return 1;
+}
+
+extern "C" int host_solve(int k, const double* L, const double* B,
+                          const double* inv_d, double* X, int bb, int n,
+                          int m, int tm, int transpose, int nthreads) {
+  switch (k) {
+    SOLVE_CASES
+  }
+  return 1;
+}
+
+extern "C" void host_seed(const double* x, double* out, long n) {
+  for (long i = 0; i < n; ++i) out[i] = expn::rsqrt_seed(x[i]);
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler (g++) to build the block code")
+    d = tmp_path_factory.mktemp("expansion_panels_host")
+    chol = " ".join(f"case {k}: chol<{k}>(in, out, bb, R, W, rt, nthreads); "
+                    f"return 0;" for k in HOST_KS)
+    solve = " ".join(f"case {k}: solve<{k}>(L, B, inv_d, X, bb, n, m, tm, "
+                     f"transpose, nthreads); return 0;" for k in HOST_KS)
+    (d / "harness.cpp").write_text(HARNESS.replace("CHOL_CASES", chol)
+                                   .replace("SOLVE_CASES", solve))
+    lib = d / "libexpansion_panels_host.so"
+    proc = subprocess.run(
+        [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fno-fast-math",
+         "-fPIC", "-shared", "-pthread", f"-I{ek.CSRC}",
+         str(d / "harness.cpp"), "-o", str(lib)],
+        capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    so = ctypes.CDLL(str(lib))
+    vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
+    so.host_chol.argtypes = [ci, vp, vp, ci, ci, ci, ci, ci]
+    so.host_solve.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci]
+    so.host_chol.restype = so.host_solve.restype = ci
+    so.host_seed.argtypes = [vp, vp, cl]
+    return so
+
+
+def _same(got, want):
+    """The same bits in every word (the sign of a zero too), NaN in the
+    same places."""
+    assert got.shape == want.shape
+    nan = got.isnan() | want.isnan()
+    assert torch.equal(got.isnan(), want.isnan())
+    bad = ((got.view(torch.int64) != want.view(torch.int64)) & ~nan).any(-1)
+    assert not bad.any(), bad.nonzero()[:4].tolist()
+
+
+def _expansions(x, k, rng):
+    """Float64 values as normalized K-word expansions with a random
+    tail, so that every word carries bits."""
+    w = np.stack([x] + [x * rng.standard_normal(x.shape) * 2.0 ** (-53 * i)
+                        for i in range(1, k)], axis=-1)
+    return core.renorm_words(torch.from_numpy(w), k)
+
+
+def _spd(rng, bb, n):
+    g = rng.standard_normal((bb, n, n))
+    return g @ g.transpose(0, 2, 1) + n * np.eye(n)
+
+
+def _host_chol(so, c, rt):
+    c = c.contiguous()
+    out = torch.empty_like(c)
+    bb, R, W, k = c.shape
+    assert so.host_chol(k, c.data_ptr(), out.data_ptr(), bb, R, W, rt,
+                        THREADS) == 0
+    return out
+
+
+def _host_solve(so, l, b, inv_d, transpose, tm):
+    out = torch.empty_like(b)
+    bb, n, m, k = b.shape
+    assert so.host_solve(k, l.data_ptr(), b.data_ptr(), inv_d.data_ptr(),
+                         out.data_ptr(), bb, n, m, tm, int(transpose),
+                         THREADS) == 0
+    return out
+
+
+def _panel(rng, bb, rows, w, k):
+    """A tall Cholesky panel: the first w columns of an SPD matrix of
+    ``rows`` rows (its first w rows the pivot block, positive
+    definite)."""
+    a = _spd(rng, bb, rows)
+    return _expansions(a[:, :, :w], k, rng)
+
+
+def test_host_seed_is_torch_rsqrt(host):
+    """The host build's sqrt_rsqrt seed, 1 / sqrt, is torch.rsqrt on CPU
+    float64 tensors, bit for bit (the card seeds with ::rsqrt, which is
+    torch.rsqrt there)."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(np.concatenate([
+        np.exp(rng.uniform(-700, 700, 4000)), [0.0, -1.0, np.inf, np.nan,
+                                               5e-324, 1.0, 4.0]]))
+    out = torch.empty_like(x)
+    host.host_seed(x.data_ptr(), out.data_ptr(), x.numel())
+    _same(out[:, None], torch.rsqrt(x)[:, None])
+
+
+def _lower_factor(rng, bb, n, k):
+    """A well-conditioned lower-triangular factor with its diagonal's
+    reciprocals (what the solves are handed)."""
+    lo = np.tril(rng.standard_normal((bb, n, n)), -1) + n * np.eye(n)
+    lfac = _expansions(lo, k, rng)
+    didx = torch.arange(n)
+    return lfac, core.recip(lfac[:, didx, didx, :]).contiguous()
+
+
+@pytest.mark.parametrize("k", HOST_KS)
+@pytest.mark.parametrize("n", (7, 32, 48))
+def test_cholesky_block_code_matches_plain(host, k, n):
+    """Both forms of the Cholesky column loop: the unblocked factor of
+    (2, n, n) (R == W == n, one block a matrix), and tall panels over
+    row tiles of 8 rows (pivot blocks computed again per block): (2, 28,
+    7) at n = 7, and the blocked route's width, (2, 69, 32), at n = 48."""
+    rng = np.random.default_rng(n * 10 + k)
+    a = _expansions(_spd(rng, 2, n), k, rng)
+    _same(_host_chol(host, a, 8), ek.cholesky_panel_plain(a))
+    if n != 32:
+        c = _panel(rng, 2, n + 21, min(n, 32), k)
+        _same(_host_chol(host, c, 8), ek.cholesky_panel_plain(c))
+
+
+@pytest.mark.parametrize("k", HOST_KS)
+@pytest.mark.parametrize("n", (7, 32, 48))
+def test_solve_block_code_matches_plain(host, k, n):
+    """The substitution in both orientations, (2, n, n) x 11 columns over
+    column tiles of 4 (a ragged last tile), and one column."""
+    rng = np.random.default_rng(n * 10 + k + 1)
+    lfac, inv_d = _lower_factor(rng, 2, n, k)
+    b = _expansions(rng.standard_normal((2, n, 11)), k, rng)
+    for transpose in (False, True):
+        want = ek.solve_unblocked_plain(lfac, b, inv_d, transpose)
+        _same(_host_solve(host, lfac, b, inv_d, transpose, 4), want)
+        _same(_host_solve(host, lfac, b[:, :, :1].contiguous(), inv_d,
+                          transpose, 4), want[:, :, :1])
+
+
+def _unblocked_loop(a):
+    """The unblocked right-looking Cholesky loop as the JAX package
+    writes it (sdpb_tpu/mp/linalg.py _cholesky_unblocked): the rank-1
+    update under the mask below x below, the upper triangle zeroed at
+    the end.  cholesky_panel_plain at R == W gives its bits."""
+    n = a.shape[1]
+    rows = torch.arange(n)
+    mat = a.clone()
+    for j in range(n):
+        d, dinv = core.sqrt_rsqrt(mat[:, j, j])
+        col = core.mul(mat[:, :, j], dinv[:, None, :])
+        below = rows > j
+        col = torch.where(below[:, None], col,
+                          torch.where((rows == j)[:, None], d[:, None, :],
+                                      0.0))
+        mat[:, :, j] = col
+        upd = core.mul(col[:, :, None, :], col[:, None, :, :])
+        mask = (below[:, None] & below[None, :])[:, :, None]
+        mat = core.add(mat, torch.where(mask, -upd, 0.0))
+    return torch.where((rows[:, None] >= rows[None, :])[:, :, None], mat,
+                       0.0)
+
+
+@pytest.mark.parametrize("k", (2, 4))
+def test_special_values_match_plain(host, k):
+    """A non-PD matrix (NaN from its first failing pivot on, as the plain
+    loop gives), and NaN, +inf and -inf words in a panel and in the
+    solve's L and B, an exact zero row among them; the unblocked factor
+    also against the JAX package's form of the loop."""
+    rng = np.random.default_rng(k)
+    a = _expansions(_spd(rng, 3, 9), k, rng)
+    a[1] = -a[1]
+    a[2, 4, 4] = -a[2, 4, 4]
+    got = _host_chol(host, a, 8)
+    assert got[1].isnan().any() and got[2].isnan().any()
+    assert torch.isfinite(got[0]).all()
+    want = ek.cholesky_panel_plain(a)
+    _same(got, want)
+    _same(want, _unblocked_loop(a))
+    c = _panel(rng, 2, 30, 9, k)
+    c[0, 12, 3, 0] = np.nan
+    c[0, 20, 5, 0] = np.inf
+    c[1, 25, 2, 0] = -np.inf
+    c[1, 15] = 0.0
+    _same(_host_chol(host, c, 8), ek.cholesky_panel_plain(c))
+    lfac, inv_d = _lower_factor(rng, 2, 9, k)
+    lfac[0, 5, 2, 0] = np.inf
+    lfac[1, 7, 1, 0] = np.nan
+    b = _expansions(rng.standard_normal((2, 9, 5)), k, rng)
+    b[0, 3, 1, 0] = -np.inf
+    b[1, 2] = 0.0
+    for transpose in (False, True):
+        _same(_host_solve(host, lfac, b, inv_d, transpose, 2),
+              ek.solve_unblocked_plain(lfac, b, inv_d, transpose))
+
+
+def test_cpu_tensors_take_the_plain_loops():
+    """On CPU tensors the wrappers return the plain loops' bits, and the
+    blocked routes of mp/linalg.py (panels of 32 above 64 rows) count no
+    kernel launch."""
+    rng = np.random.default_rng(5)
+    k = 3
+    ek.reset_launches()
+    a = _expansions(_spd(rng, 2, 6), k, rng)
+    _same(ek.exp_cholesky_panel(a), ek.cholesky_panel_plain(a))
+    lfac, inv_d = _lower_factor(rng, 2, 6, k)
+    b = _expansions(rng.standard_normal((2, 6, 2)), k, rng)
+    for transpose in (False, True):
+        _same(ek.exp_solve_unblocked(lfac, b, inv_d, transpose),
+              ek.solve_unblocked_plain(lfac, b, inv_d, transpose))
+    big = _expansions(_spd(rng, 1, 70)[0], 2, rng)
+    lbig = la.cholesky(big)
+    la.solve_lower_t(lbig, la.solve_lower(lbig, big[:, :3]))
+    assert all(v == 0 for v in ek.LAUNCHES.values()), ek.LAUNCHES

@@ -136,7 +136,7 @@ def test_cli_refuses_a_precision_above_the_largest_kernel_class(
     rc = app.main(["-s", str(tmp_path / "missing"), "--precision",
                    str(top + 1)], device="cpu")
     assert rc == 2
-    assert f"largest precision this port takes is {top}" in \
+    assert f"largest kernel class, which holds {top} bits" in \
         capsys.readouterr().err
 
 

@@ -182,14 +182,14 @@ def test_cli_device_cpu_solves_in_expansions(tmp_path, reference, capsys):
     assert meta["options"]["word_dtype"] == "float64"
 
 
-def test_cli_device_cpu_takes_any_precision(tmp_path, monkeypatch):
-    """--precision 5000 (above the limb kernels' cap of 4590) is not
-    refused on the CPU: the solver receives a 95-word float64 problem.
-    (The memory check is stubbed: the CRT products' prime pool, shared
-    with sdpb_tpu, holds about 2800 bits, so at 5000 the estimate's CRT
-    plan and the solve's Q product stop, in both packages.)"""
-    from sdpb_tpu_torch.solver import memory
-
+def test_cli_device_cpu_takes_any_precision(tmp_path, monkeypatch, capsys):
+    """--device cpu has no cap of its own: --precision 2800, above the
+    card's expansion kernels (K <= 20, 1060 bits), reaches the solver
+    as a 53-word float64 problem.  Its one limit is the CRT products'
+    prime pool, shared with sdpb_tpu (~2800 bits): --precision 5000,
+    above the limb kernels' cap of 4590 too, is refused at startup with
+    exit 2 naming the pool's limit, where the estimate's CRT plan used
+    to stop with a traceback."""
     seen = {}
 
     class Reached(Exception):
@@ -200,9 +200,10 @@ def test_cli_device_cpu_takes_any_precision(tmp_path, monkeypatch):
         raise Reached
 
     monkeypatch.setattr(driver, "solve", fake_solve)
-    monkeypatch.setattr(memory, "check_memory_limit", lambda *a, **kw: None)
+    argv = ["-s", str(SDP_1D), "-o", str(tmp_path / "out"), "-c",
+            str(tmp_path / "ck"), "--device", "cpu", "--verbosity", "0"]
     with pytest.raises(Reached):
-        app.main(["-s", str(SDP_1D), "-o", str(tmp_path / "out"), "-c",
-                  str(tmp_path / "ck"), "--precision", "5000",
-                  "--device", "cpu", "--verbosity", "0"])
-    assert seen == {"dtype": torch.float64, "k": 95}
+        app.main(argv + ["--precision", "2800"])
+    assert seen == {"dtype": torch.float64, "k": 53}
+    assert app.main(argv + ["--precision", "5000"]) == 2
+    assert "prime pool" in capsys.readouterr().err
