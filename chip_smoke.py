@@ -11,8 +11,8 @@ Phases, each printing its name and elapsed seconds:
      (K = 1..20: the elementwise kernel, the Cholesky column loop and
      the substitution) with nvcc, one process per object, all started
      together (registers, stack frame and spills per kernel
-     instantiation and per out-of-line function; a spill fails the
-     phase)
+     instantiation and per out-of-line function, the column-loop
+     kernels' at every K; a spill fails the phase)
   3. kernels against their plain PyTorch versions, bit for bit: the
      factorization kernels at the full-width shapes (S = 47, 400 bits)
      and at S = 26 (--precision 212), S = 116 (--precision 1024),
@@ -26,8 +26,9 @@ Phases, each printing its name and elapsed seconds:
      values for K = 2, 4, 8 and 20, over zeros, cancellation, NaN,
      +-inf and exponents 2^-500..2^500; the expansion Cholesky panel
      and substitution kernels against their plain loops at the
-     full-width iteration's shapes (K = 8) and at K = 2, 4 and 20, with
-     a non-PD input and NaN and +-inf words, every word's bits
+     full-width iteration's shapes (K = 8) and at K = 2, 4 and 20 (at
+     K = 20 also the full-width panels and solves), with a non-PD input
+     and NaN and +-inf words, every word's bits
   4. the 1d quickstart SDP end to end through the sdpb CLI entry point
      at the stock contract (--precision 212): PrimalDualOptimal and the
      known objective
@@ -57,7 +58,10 @@ Phases, each printing its name and elapsed seconds:
      direction to 1e-30) against phase 5's limb one, and one more
      iteration under torch.profiler; (c) approx_objective's CLI on
      the card on the 1d SDP, (a)'s solution and a perturbed SDP
-     compiled by pmp2sdp, against the same CLI on the CPU
+     compiled by pmp2sdp, against the same CLI on the CPU; (d) the
+     full-width problem at --precision 1024 (K = 20) for 1 iteration,
+     its time, peak memory and launches, and one more iteration under
+     torch.profiler (the column-loop kernels' device time)
 
 The line before the last is one JSON object with a record per kernel
 (``ms``: CUDA events around back-to-back calls; ``device_ms``: the CUDA
@@ -224,11 +228,11 @@ def _ptxas_resources(lines):
             k = re.search(r"(chol_warp|solve_warp|elementwise_warp|"
                           r"expansion|exp_chol|exp_solve)_kernelI"
                           r"((?:Li\d+E)+)E", m.group(1))
-            f = re.search(r"4expn\d+(\w+?)ILi(\d+)E", m.group(1))
+            f = re.search(r"4expn(4warp)?\d+(\w+?)ILi(\d+)E", m.group(1))
             cur = (f"{k.group(1)}_kernel<"
                    + ",".join(re.findall(r"Li(\d+)E", k.group(2))) + ">"
-                   if k else f"expn::{f.group(1)}<{f.group(2)}>" if f
-                   else None)
+                   if k else f"expn::{'warp::' if f.group(1) else ''}"
+                   f"{f.group(2)}<{f.group(3)}>" if f else None)
             continue
         if cur is None:
             continue
@@ -617,14 +621,18 @@ def _expansion_checks(dev, rng, k, n):
 # (96 rows, and 240 padded to 256) and of Q (384) at their first and a
 # middle panel, the solves of the X/Y blocks against N = 384 columns,
 # of the 48-row blocks against 48 and 96, and of one column; then
-# K = 2, 4 and 20 (--precision 1060) at a small batch.
+# K = 2, 4 and 20 (--precision 1060) at a small batch, and the first
+# two panels and solves of the list at K = 20.
 EXP_CHOL_SHAPES = ((48, 32, 32, 8), (16, 48, 48, 8), (48, 96, 32, 8),
                    (48, 64, 32, 8), (16, 256, 32, 8), (16, 128, 32, 8),
                    (1, 384, 32, 8), (1, 192, 32, 8)) + tuple(
-    (2, R, 32, k) for k in (2, 4, 20) for R in (32, 96))
+    (2, R, 32, k) for k in (2, 4, 20) for R in (32, 96)) + (
+    (48, 32, 32, 20), (1, 384, 32, 20))
 EXP_SOLVE_SHAPES = ((48, 32, 384, 8), (16, 48, 48, 8), (16, 48, 96, 8),
                     (1, 32, 1, 8)) + tuple(
-    (2, 32, 16, k) for k in (2, 4, 20)) + ((2, 64, 8, 20),)
+    (2, 32, 16, k) for k in (2, 4, 20)) + ((2, 64, 8, 20),
+                                           (48, 32, 384, 20),
+                                           (16, 48, 96, 20))
 EXP_FULL_WIDTH = {"exp_cholesky_panel": 8, "exp_solve_unblocked": 4}
 
 
@@ -776,7 +784,7 @@ def _panel_checks(dev, rng):
             ops = _exp_solve_ops(bb, n, m, k, transpose)
             bound, by = bound_ms(nbytes, ops, PEAK_F64_PER_S)
             print(f"{name} ({bb},{n},{n})x{m} K={k} T={int(transpose)}: "
-                  f"bit-exact  tile {ek.solve_tile(n, m, k)}  kernel "
+                  f"bit-exact  lanes {ek.solve_lanes(bb, n, m)}  kernel "
                   f"{ms:.3f} ms  plain {plain_ms:.1f} ms  bound "
                   f"{bound:.5f} ms ({by})  ratio {ms / bound:.0f}",
                   flush=True)
@@ -1574,8 +1582,51 @@ def _expansion_approx(dev, out_root: Path, sol_dir: Path):
     return launches
 
 
+def _expansion_k20(dev):
+    """(d) bench.py's synthetic problem at full width in expansions at
+    --precision 1024 (K = 20, the column-loop kernels' largest word
+    count): one iteration, its time, peak memory and the expansion
+    kernels' launches, finite objectives and mu; then one more iteration
+    under torch.profiler for the kernels' device time."""
+    import mpmath
+    import torch
+
+    from sdpb_tpu_torch.ops import expansion_kernels as ek
+    from sdpb_tpu_torch.solver import driver, synthetic
+    from sdpb_tpu_torch.solver.params import SolverParams
+
+    params = SolverParams(precision=1024, max_iterations=1,
+                          word_dtype="float64")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    problem, state = synthetic.build_problem(params, device=dev)
+    ek.reset_launches()
+    t0 = time.time()
+    result = driver.solve(problem, params, state=state)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = dict(ek.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    _require_launches("expansion K = 20", launches, EXP_PATH_KERNELS)
+    if len(result.iterations) != 1:
+        raise AssertionError(f"expansion K = 20 ran "
+                             f"{len(result.iterations)} iterations")
+    got = result.iterations[0]
+    for key in ("mu", "primal_objective", "dual_objective"):
+        if not mpmath.isfinite(_mpf400(getattr(got, key))):
+            raise AssertionError(f"expansion K = 20 {key} is "
+                                 f"{getattr(got, key)}")
+    print(f"(d) expansion full width (K = {params.n_words}): 1 iteration "
+          f"in {seconds:.2f} s; max_memory_allocated "
+          f"{peak / 2**30:.3f} GiB; mu {got.mu[:24]}; launches "
+          f"{launches}", flush=True)
+    _profile_iteration(problem, state, seconds, params,
+                       "expansion full width K = 20")
+    return launches
+
+
 def phase_expansion(dev, out_root: Path, limb_full):
-    """Phase 8: the expansion format on the card, paths (a)-(c)."""
+    """Phase 8: the expansion format on the card, paths (a)-(d)."""
     t = time.time()
     paths = {}
     paths["exp_1d"], sol_dir, _ = _expansion_1d(dev, out_root)
@@ -1583,6 +1634,7 @@ def phase_expansion(dev, out_root: Path, limb_full):
         dev, limb_full["first"], limb_full["direction"])
     paths["exp_approx_objective"] = _expansion_approx(dev, out_root,
                                                       sol_dir)
+    paths["exp_full_width_k20"] = _expansion_k20(dev)
     phase("8 expansion format", t)
     return paths, mem
 

@@ -34,7 +34,7 @@ constexpr int kMaxWords = 20;
 
 // Words of the bitonic merge in add: the smallest power of two >= 2K.
 template <int K>
-constexpr int merge_words() {
+EXP_HD constexpr int merge_words() {
   int n = 1;
   while (n < 2 * K) n <<= 1;
   return n;
@@ -43,7 +43,7 @@ constexpr int merge_words() {
 // Partial products mul keeps: p[i][j] with i + j <= K and e[i][j] with
 // i + j + 1 <= K (i, j < K).
 template <int K>
-constexpr int mul_terms() {
+EXP_HD constexpr int mul_terms() {
   int n = 0;
   for (int i = 0; i < K; ++i)
     for (int j = 0; j < K; ++j) n += (i + j <= K) + (i + j + 1 <= K);

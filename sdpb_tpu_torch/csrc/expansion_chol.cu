@@ -7,31 +7,42 @@
 // sdpb_tpu/mp/linalg.py:207-237 (_cholesky_unblocked, n <= 64) and
 // :318-340 (col_step and panel_step of cholesky, the 32 columns of a
 // panel).  Written as PyTorch tensor code the loop takes ~45 launches
-// a column (25 expansion kernels for sqrt_rsqrt alone at K = 8), and
-// the host's launch cost, not the card, set the time.
+// a column, and the host's launch cost, not the card, set the time.
 //
-// What bounds it on this card.  A step's pivot is ~35 dependent
-// expansion operations in one thread (sqrt_rsqrt: newton_steps(K)
-// Newton steps of three products and two additions, then the Heron
-// correction), so a panel of 32 columns is a chain of ~1,100 dependent
-// expansion operations: latency, milliseconds at K = 8.  The trailing
-// update beside it is ~W^2 R / 2 products and additions, against the
-// card's 17e12 float64 operations a second (no FMA: -fmad=false) and
-// 3.35 TB/s: a bound of 0.01-0.2 ms at the panels of one iteration.
+// What bounds it on this card.  Each step's pivot is a chain of ~30
+// dependent expansion operations (the next pivot's last update, then
+// sqrt_rsqrt: newton_steps(K) Newton steps of three products and two
+// sums, the Heron correction), and a renormalization inside each is two
+// chains of dependent float64 additions whose order the bits fix
+// (VecSum, then VecSumErrBranch: 78 + 78 links for a K = 8 product, 438 +
+// 438 at K = 20, 8.4 cycles a link).  So a panel is ~32 such chains in a
+// row: latency, milliseconds.  The trailing update beside it, ~W^2 R / 2
+// products and sums, is 0.01-0.2 ms of the card's float64 rate (no FMA:
+// -fmad=false).
 //
-// What the design does about it.  One launch carries the whole column
-// loop, so the host pays one call a panel instead of ~45 a column.  A
-// block takes one batch element's pivot block and up to ``rt`` rows
-// below it (ops/expansion_kernels.py CHOL_ROW_TILE); the blocks of a
-// tall panel (the Q factor's: batch 1, up to 384 rows) each compute
-// the pivot chain again on a private copy of the pivot block (in
-// ``scratch``), so its rows spread over the card and no block waits
-// for another.  A step: one thread forms the pivot, the block forms
-// the column's multipliers into shared memory, every thread updates
-// its entries, one __syncthreads() between the phases.  An entry's
-// words stay in device memory (L1/L2) between steps; the expansion
-// operations are out-of-line functions, one copy of each.  Overlapping
-// a step's pivot with the update before it is left to a later change.
+// What the design does about it.
+// - The pivot runs on a warp (warp 0), as a short program of warp
+//   operations (csrc/expansion_warp.cuh) on K-word slots in shared
+//   memory: the partial products, the merge and VecSum's errors spread
+//   over the lanes, the two chains run once, their words read from
+//   shared memory ahead of the links that take them.
+// - Look-ahead: in step t the pivot warp forms pivot t + 1 from row
+//   t + 1's two entries while the other three warps (an update thread a
+//   row) form step t's multipliers and the rest of step t's update.  One
+//   block barrier a step hands the pivot over; a named barrier orders the
+//   update threads' multipliers before their update.  A step takes
+//   max(pivot chain, update) instead of their sum.
+// - Every operation keeps its words in registers or in the thread's
+//   shared-memory scratch, with compile-time indices
+//   (csrc/expansion_regs.cuh): no local memory, no spill at any K.
+// A block takes one batch element's pivot block and up to ``rt`` rows
+// below it, W + rt <= 96 (ops/expansion_kernels.py chol_row_tile); the
+// blocks of a tall panel (the Q factor's: batch 1, up to 384 rows) each
+// compute the pivot chain again on a private copy of the pivot block (in
+// ``scratch``), so that its rows spread over the card and no block waits
+// for another.  Above K = 8 the renormalizations' chains run in loops of
+// 8 links and a thread's product streams over its levels, which keeps
+// the registers and the build's time in bounds.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -c -Xcompiler -fPIC -DEXP_K=<K>
@@ -43,10 +54,10 @@
 
 namespace {
 
-// Threads a block.  One block an SM suffices (__launch_bounds__ min
-// blocks 1): without that bound ptxas gives these kernels fewer
-// registers than their out-of-line operations' calls need and spills
-// around the calls, at some K of 1..20.
+// Threads a block: the pivot warp and three warps of update threads,
+// one row of the block each (so a block takes at most 96 rows).  The
+// bound's one block an SM lets ptxas give each thread the registers
+// that the in-register operations need.
 constexpr int kThreads = 128;
 
 // in, out (bb, R, W, K); scratch (bb, tiles - 1, W, W, K): block
@@ -86,9 +97,17 @@ int EXP_PASTE(expansion_chol_k, EXP_K)(const double* in, double* out,
                                        double* scratch, int bb, int R, int W,
                                        int tiles, int rt, void* stream) {
   if (bb < 1 || W < 1 || R < W || tiles < 1 || rt < 1 ||
+      W + (R > W ? rt : 0) > kThreads - 32 ||
       (tiles > 1 && scratch == nullptr) || EXP_K > expn::kMaxWords)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(W + rt + 2) * EXP_K * sizeof(double);
+  const size_t smem = (size_t)expn::chol_smem_words<EXP_K>(
+                          W + (R > W ? rt : 0), kThreads) * sizeof(double);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        exp_chol_kernel<EXP_K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   exp_chol_kernel<EXP_K><<<bb * tiles, kThreads, smem,
                            (cudaStream_t)stream>>>(in, out, scratch, R, W,
                                                    tiles, rt);

@@ -2,51 +2,53 @@
 // and triangular substitution, one thread block at a time.  The bodies
 // of csrc/expansion_chol.cu and csrc/expansion_solve.cu.
 //
-// chol_panel_block and solve_block are what ONE block of the kernel
-// does, written against a thread index ``tid`` of ``nthreads`` and a
-// barrier, EXP_SYNC() (__syncthreads() on the card).  The per-value arithmetic
-// is csrc/expansion.cuh's, so every entry takes the float64 operations
-// of the plain loops (ops/expansion_kernels.py cholesky_panel_plain,
-// solve_unblocked_plain) in their order, and the results agree bit for
-// bit.  Work is shared between threads only across values, never
-// inside one, and EXP_SYNC() separates the phases of a step.
+// chol_panel_block and solve_block are what ONE block of a kernel does,
+// written against a thread index ``tid`` of ``nthreads``, the block
+// barrier EXP_SYNC() (__syncthreads()), the update threads' barrier
+// EXP_SYNC_UPDATE(n) (named barrier 1) and a warp shuffle EXP_SHFL.
+// The per-value arithmetic is csrc/expansion_regs.cuh's (a value a
+// thread) and csrc/expansion_warp.cuh's (a value a warp: the pivots), so
+// every entry takes the float64 operations of the plain loops
+// (ops/expansion_kernels.py cholesky_panel_plain, solve_unblocked_plain)
+// in their order, and the results agree bit for bit.  Each thread has
+// regs::thread_words<K>() words of ``sh`` for its operations' scratch
+// (regs::Emit).
+//
+// What bounds these loops is the chain of dependent float64 operations,
+// not the work beside it: a Cholesky step's pivot (sqrt_rsqrt, ~15
+// products and ~10 additions in a row), a substitution row's product,
+// tree and division.  The design puts one warp on the chain and keeps
+// the rest of the block on the work beside it (see each function).
 //
 // tests/test_torch_expansion_panels.py compiles this header with g++
-// (-ffp-contract=off) and runs each block with host threads and a
-// std::barrier as EXP_SYNC(), against the plain loops.
+// (-ffp-contract=off) and runs each block with one host thread per CUDA
+// thread, std::barrier for the barriers and an exchange through memory
+// for the shuffle, against the plain loops.
 
 #pragma once
 
 #include <string.h>
 
-#include "expansion.cuh"
+#include "expansion_warp.cuh"
 
-// The block-level functions are device code in the kernels, and the
-// per-value operations they call are out of line there: one copy of
-// each operation's code, with registers of its own.  The tests define
-// all three macros for their host build.
 #ifndef EXP_BLOCK
 #define EXP_BLOCK __device__ __forceinline__
 #endif
-#ifndef EXP_OP
-#define EXP_OP __device__ __noinline__
-#endif
-
 #ifndef EXP_SYNC
 #define EXP_SYNC() __syncthreads()
 #endif
+// The n update threads (all warps but the first) of a Cholesky block.
+#ifndef EXP_SYNC_UPDATE
+#define EXP_SYNC_UPDATE(n) asm volatile("bar.sync 1, %0;" ::"r"(n) : "memory")
+#endif
+#ifndef EXP_SHFL
+#define EXP_SHFL(v, src) __shfl_sync(0xffffffffu, (v), (src))
+#endif
+#ifndef EXP_SYNC_WARP
+#define EXP_SYNC_WARP() __syncwarp()
+#endif
 
 namespace expn {
-
-template <int K>
-EXP_HD void copy(const double* src, double* dst) {
-  for (int i = 0; i < K; ++i) dst[i] = src[i];
-}
-
-template <int K>
-EXP_HD void set_zero(double* dst) {
-  for (int i = 0; i < K; ++i) dst[i] = 0.0;
-}
 
 EXP_HD long long word_bits(double x) {
 #ifdef __CUDA_ARCH__
@@ -60,32 +62,21 @@ EXP_HD long long word_bits(double x) {
 
 // Every word +0.0 (not -0.0): add of two such values is one again.
 template <int K>
-EXP_HD bool is_pos_zero(const double* v) {
-  for (int i = 0; i < K; ++i)
-    if (word_bits(v[i]) != 0) return false;
-  return true;
+EXP_HD bool is_pos_zero(const double (&v)[K]) {
+  bool z = true;
+  regs::static_for<0, K>([&](auto I) {
+    z = z && word_bits(v[EXP_IDX(I)]) == 0;
+  });
+  return z;
 }
 
 template <int K>
-EXP_HD bool same_bits(const double* a, const double* b) {
-  for (int i = 0; i < K; ++i)
-    if (word_bits(a[i]) != word_bits(b[i])) return false;
-  return true;
-}
-
-template <int K>
-EXP_OP void op_add(const double* a, const double* b, double* out) {
-  add<K>(a, b, out);
-}
-
-template <int K>
-EXP_OP void op_mul(const double* a, const double* b, double* out) {
-  mul<K>(a, b, out);
-}
-
-template <int K>
-EXP_OP void op_add_f64(const double* a, double x, double* out) {
-  add_f64<K>(a, x, out);
+EXP_HD bool same_bits(const double (&a)[K], const double (&b)[K]) {
+  bool s = true;
+  regs::static_for<0, K>([&](auto I) {
+    s = s && word_bits(a[EXP_IDX(I)]) == word_bits(b[EXP_IDX(I)]);
+  });
+  return s;
 }
 
 // The seed of sqrt_rsqrt: torch.rsqrt of the leading word, which is
@@ -98,55 +89,149 @@ EXP_HD double rsqrt_seed(double x) {
 #endif
 }
 
-// mp/core.py sqrt_rsqrt: Newton on 1/sqrt(a) from the seed, then one
-// Heron correction of s = a y.  A negative a gives NaN.
+// ---------------------------------------------------------------------------
+// The pivot program: a Cholesky step's serial chain as a list of
+// operations on K-word slots in shared memory, run by one loop with one
+// copy of each operation's code (the chain is ~30 operations; written
+// out, each a copy of mul or add, it would be ~30 copies).
+// ---------------------------------------------------------------------------
+
+// Slots: the next column's entries (t+1, t) and (t+1, t+1), the
+// pivot a, y = 1/sqrt(a) (also the current 1/d), two temporaries, the
+// first sqrt estimate and d = sqrt(a).
+enum PivotSlot { kX1, kX2, kA, kY, kU, kV, kS0, kS, kPivotSlots };
+
+// mp/core.py newton_steps: max(1, bit_length(53 K // 50)).
 template <int K>
-EXP_BLOCK void sqrt_rsqrt(const double* a, double* s, double* y) {
-  if (K == 1) {
-    s[0] = sqrt(a[0]);
-    y[0] = rsqrt_seed(a[0]);
-    return;
-  }
-  y[0] = rsqrt_seed(a[0]);
-  for (int i = 1; i < K; ++i) y[i] = 0.0;
-  double u[K], v[K];
-  // mp/core.py newton_steps: max(1, bit_length(53 K // 50))
-  constexpr int kV = K * 53 / 50;
-  static_assert(kV < 64, "newton_steps below is written for K <= 60");
-  constexpr int kSteps = kV >= 32 ? 6 : kV >= 16 ? 5 : kV >= 8 ? 4
-                         : kV >= 4 ? 3 : kV >= 2 ? 2 : 1;
-#pragma unroll 1
-  for (int it = 0; it < kSteps; ++it) {
-    op_mul<K>(y, y, u);                       // y^2
-    op_mul<K>(a, u, v);                       // a y^2
-    for (int i = 0; i < K; ++i) v[i] = -v[i];
-    op_add_f64<K>(v, 1.0, u);                 // 1 - a y^2
-    op_mul<K>(y, u, v);
-    for (int i = 0; i < K; ++i) v[i] *= 0.5;  // the correction
-    op_add<K>(y, v, u);
-    copy<K>(u, y);
-  }
-  double s0[K];
-  op_mul<K>(a, y, s0);
-  op_mul<K>(s0, s0, u);
-  for (int i = 0; i < K; ++i) u[i] = -u[i];
-  op_add<K>(a, u, v);                         // a - s^2
-  op_mul<K>(v, y, u);
-  for (int i = 0; i < K; ++i) u[i] *= 0.5;
-  op_add<K>(s0, u, s);
+EXP_HD constexpr int newton_steps() {
+  constexpr int v = K * 53 / 50;
+  static_assert(v < 64, "newton_steps is written for K <= 60");
+  return v >= 32 ? 6 : v >= 16 ? 5 : v >= 8 ? 4 : v >= 4 ? 3
+         : v >= 2 ? 2 : 1;
 }
 
-// ``count`` additions of +0 to v, the zero terms a finished entry
-// takes from the remaining steps' masked updates.  add is a function
-// of its operands, so once one leaves v unchanged the rest do too.
+// Operation kinds and the code of one operation: kind | x << 2 | y << 6
+// | out << 10 | neg_y << 14 | half_out << 15 | neg_x << 16.
+enum PivotOp { kMul, kAdd, kAddOne, kSeed };
+EXP_HD constexpr int pivot_code(int kind, int x, int y, int out,
+                                int neg_y = 0, int half = 0, int neg_x = 0) {
+  return kind | x << 2 | y << 6 | out << 10 | neg_y << 14 | half << 15 |
+         neg_x << 16;
+}
+
+// Operation q of a step's program.  0..2: the next pivot's last update,
+// a = x2 - (x1 / d)^2 as the plain loop forms it (the multiplier
+// x1 * (1/d), its square, the subtraction); 3: the seed y; then
+// mp/core.py sqrt_rsqrt: newton_steps(K) Newton steps of five operations
+// and the Heron correction, five more.
 template <int K>
-EXP_BLOCK void zero_adds(double* v, int count) {
-  double z[K], y[K];
-  set_zero<K>(z);
-  for (int i = 0; i < count; ++i) {
-    op_add<K>(v, z, y);
-    if (same_bits<K>(y, v)) return;
-    copy<K>(y, v);
+EXP_HD int pivot_op(int q) {
+  if (q < 4) {
+    switch (q) {
+      case 0: return pivot_code(kMul, kX1, kY, kU);
+      case 1: return pivot_code(kMul, kU, kU, kU);
+      case 2: return pivot_code(kAdd, kX2, kU, kA, 1);
+      default: return pivot_code(kSeed, kA, kA, kY);
+    }
+  }
+  q -= 4;
+  if (q < 5 * newton_steps<K>()) {
+    switch (q % 5) {
+      case 0: return pivot_code(kMul, kY, kY, kU);        // y^2
+      case 1: return pivot_code(kMul, kA, kU, kV);        // a y^2
+      case 2: return pivot_code(kAddOne, kV, kV, kU, 0, 0, 1);  // 1 - a y^2
+      case 3: return pivot_code(kMul, kY, kU, kV, 0, 1);  // the correction
+      default: return pivot_code(kAdd, kY, kV, kY);
+    }
+  }
+  switch (q - 5 * newton_steps<K>()) {
+    case 0: return pivot_code(kMul, kA, kY, kS0);         // s0 = a y
+    case 1: return pivot_code(kMul, kS0, kS0, kU);
+    case 2: return pivot_code(kAdd, kA, kU, kV, 1);       // a - s0^2
+    case 3: return pivot_code(kMul, kV, kY, kU, 0, 1);
+    default: return pivot_code(kAdd, kS0, kU, kS);
+  }
+}
+
+template <int K>
+EXP_HD constexpr int pivot_ops() {
+  return 4 + 5 * newton_steps<K>() + 5;
+}
+
+// Operations q0 .. q1 - 1 of the program on ``slot`` (kPivotSlots x K
+// words), by the whole warp: for K >= 3 each operation is a warp
+// operation (csrc/expansion_warp.cuh) on the warp's scratch ``wsm``;
+// K = 2 (whose add and mul are not renormalizations) runs the per-thread
+// operations on every lane, K = 1 is sqrt and the seed.  Every lane
+// writes the same words; a warp barrier between an operation's reads and
+// its writes keeps a lane from overwriting a slot another lane has yet
+// to read.
+template <int K>
+EXP_BLOCK void pivot_program(double* slot, int q0, int q1, double* wsm,
+                             const regs::Emit& em, int lane) {
+  if constexpr (K == 1) {
+    double a = slot[kA];
+    if (q0 == 0) {
+      const double m = slot[kX1] * slot[kY];
+      a = slot[kX2] + -(m * m);
+    }
+    EXP_SYNC_WARP();
+    slot[kA] = a;
+    slot[kS] = sqrt(a);
+    slot[kY] = rsqrt_seed(a);
+    EXP_SYNC_WARP();
+  } else {
+    const warp::Scratch<K> ws(wsm);
+#pragma unroll 1
+    for (int q = q0; q < q1; ++q) {
+      const int c = pivot_op<K>(q);
+      const double* xs = slot + ((c >> 2) & 15) * K;
+      const double* ys = slot + ((c >> 6) & 15) * K;
+      double* os = slot + ((c >> 10) & 15) * K;
+      const bool neg_x = (c >> 16) & 1, neg_y = (c >> 14) & 1;
+      const bool half = (c >> 15) & 1;
+      if constexpr (K == 2) {
+        double x[K], y[K], o[K];
+        regs::static_for<0, K>([&](auto I) {
+          constexpr int t = EXP_IDX(I);
+          x[t] = neg_x ? -xs[t] : xs[t];
+          y[t] = neg_y ? -ys[t] : ys[t];
+        });
+        switch (c & 3) {
+          case kMul: regs::mul<K>(x, y, em, o); break;
+          case kAdd: regs::add<K>(x, y, em, o); break;
+          case kAddOne: regs::add_f64<K>(x, 1.0, em, o); break;
+          default:
+            o[0] = rsqrt_seed(x[0]);
+            o[1] = 0.0;
+        }
+        EXP_SYNC_WARP();  // every lane has read the operands
+        regs::static_for<0, K>([&](auto I) {
+          constexpr int t = EXP_IDX(I);
+          os[t] = half ? o[t] * 0.5 : o[t];
+        });
+      } else {
+        if (lane < K) {
+          ws.x[lane] = neg_x ? -xs[lane] : xs[lane];
+          ws.y[lane] = neg_y ? -ys[lane] : ys[lane];
+        }
+        EXP_SYNC_WARP();
+        warp::Res r;
+        switch (c & 3) {
+          case kMul: r = warp::mul<K>(ws, lane); break;
+          case kAdd: r = warp::add<K>(ws, lane); break;
+          case kAddOne: r = warp::add_f64<K>(ws, 1.0, lane); break;
+          default: r = {rsqrt_seed(ws.x[0]), 0};
+        }
+        EXP_SYNC_WARP();  // the emitted words are out, the operands read
+        if (lane < K) {
+          const double w =
+              lane < r.j ? ws.emit[lane] : (lane == r.j ? r.e : 0.0);
+          os[lane] = half ? w * 0.5 : w;
+        }
+      }
+      EXP_SYNC_WARP();
+    }
   }
 }
 
@@ -157,131 +242,299 @@ EXP_HD double* panel_entry(double* diag, double* tile, int W, int r, int c) {
                : tile + ((long)(r - W) * W + c) * K;
 }
 
+// Shared memory of a Cholesky block, in doubles.
+template <int K>
+EXP_HD constexpr long chol_smem_words(int rows, int nthreads) {
+  return (long)regs::thread_words<K>() * nthreads +
+         (long)K * (rows + 4 + kPivotSlots) + warp::scratch_words<K>();
+}
+
 // One block's share of the column loop of a Cholesky panel: the
 // matrix's rows R >= W of W columns, the first W rows the pivot block.
 // The block holds the pivot block (``diag``, from ``in_diag``) and
 // ``nt`` rows below it (``tile``, from ``in_tile``), each row W values
-// of K words; a block that is not the first of its panel works on a
-// private copy of the pivot block, which it computes again, so that
-// blocks share nothing.  ``sh`` holds (W + nt + 2) K doubles: the
-// step's multipliers, then the pivot's d and 1/d.
+// of K words, W + nt <= nthreads - 32; a block that is not the first of
+// its panel works on a private copy of the pivot block, which it
+// computes again, so that blocks share nothing.  ``sh`` holds
+// chol_smem_words(W + nt, nthreads) doubles.
 //
 // Per column t, in the plain loop's order: d, 1/d = sqrt_rsqrt of the
-// pivot; the column below it times 1/d (these are the multipliers);
-// then every entry in a column c > t takes add(v, -mul(m_r, m_c)).
-// An entry of column t is final after the step's zero additions
-// (W - t of them, the masked update's zeros of steps t..W-1).  The
-// pivot block's upper triangle is not computed and is written +0,
-// as the plain version writes it: the blocked Cholesky reads only the
-// lower triangle.
+// pivot; the column below it times 1/d (the multipliers); every entry
+// in a column c > t takes add(v, -mul(m_r, m_c)).  An entry of column t
+// is final after the step's zero additions (W - t of them, the masked
+// update's zeros of steps t..W-1).  The pivot block's upper triangle is
+// +0, as the plain version writes it.
+//
+// The schedule (look-ahead).  The first warp computes the pivots; the
+// other warps (the update threads, one row each) everything else.  In
+// step t the pivot warp forms the next pivot from the two entries of
+// row t+1 it needs, (t+1, t) and (t+1, t+1), as the plain loop would
+// after step t (multiplier, its square, the subtraction, sqrt_rsqrt),
+// while the update threads form step t's multipliers (behind their own
+// barrier) and the rest of step t's update; entry (t+1, t+1)'s update is
+// the pivot warp's alone.  One block barrier a step hands the pivot
+// over, so a step takes max(pivot chain, update) instead of their sum.
+// Each entry still takes its updates in the order of t.  An update
+// thread keeps its row's final word of column t in registers and stores
+// it in step t+1, after the pivot warp has read entry (t+1, t).
 template <int K>
 EXP_BLOCK void chol_panel_block(const double* in_diag, const double* in_tile,
-                             double* diag, double* tile, int W, int nt,
-                             double* sh, int tid, int nthreads) {
+                                double* diag, double* tile, int W, int nt,
+                                double* sh, int tid, int nthreads) {
   const int rows = W + nt;
+  const regs::Emit em{sh + tid, nthreads};
+  double* mult = sh + (long)regs::thread_words<K>() * nthreads;
+  double* piv = mult + (long)rows * K;  // [t & 1]: d, then 1/d
+  double* slot = piv + 4 * K;
+  double* wsm = slot + kPivotSlots * K;  // the pivot warp's scratch
   for (long w = tid; w < (long)rows * W; w += nthreads) {
     const int r = (int)(w / W), c = (int)(w % W);
-    copy<K>(r < W ? in_diag + w * K : in_tile + (w - (long)W * W) * K,
-            panel_entry<K>(diag, tile, W, r, c));
+    const double* src =
+        r < W ? in_diag + w * K : in_tile + (w - (long)W * W) * K;
+    double* dst = panel_entry<K>(diag, tile, W, r, c);
+    for (int i = 0; i < K; ++i) dst[i] = src[i];
   }
   EXP_SYNC();
-  double* mult = sh;
-  double* piv = sh + (long)rows * K;  // d, then 1/d
+  if (tid < 32) {
+    // the pivot warp
+    if constexpr (K >= 3) warp::init_codes<K>(warp::Scratch<K>(wsm), tid);
+    for (int i = 0; i < K; ++i) slot[kA * K + i] = diag[i];
+    pivot_program<K>(slot, 3, pivot_ops<K>(), wsm, em, tid);
+    for (int i = 0; i < K; ++i) {
+      piv[i] = slot[kS * K + i];
+      piv[K + i] = slot[kY * K + i];
+    }
+#pragma unroll 1
+    for (int t = 0; t < W; ++t) {
+      EXP_SYNC();
+      if (t + 1 < W) {
+        const double* x1 = diag + ((long)(t + 1) * W + t) * K;
+        for (int i = 0; i < K; ++i) {
+          slot[kX1 * K + i] = x1[i];
+          slot[kX2 * K + i] = x1[K + i];
+        }
+        pivot_program<K>(slot, 0, pivot_ops<K>(), wsm, em, tid);
+        double* nxt = piv + ((t + 1) & 1) * 2 * K;
+        for (int i = 0; i < K; ++i) {
+          nxt[i] = slot[kS * K + i];
+          nxt[K + i] = slot[kY * K + i];
+        }
+      }
+    }
+    return;
+  }
+  // the update threads: row u
+  const int u = tid - 32, nu = nthreads - 32;
+  double fin[K];
 #pragma unroll 1
   for (int t = 0; t < W; ++t) {
-    if (tid == 0)
-      sqrt_rsqrt<K>(panel_entry<K>(diag, tile, W, t, t), piv, piv + K);
     EXP_SYNC();
-    for (int r = tid; r < rows; r += nthreads) {
-      double v[K];
-      if (r < t) {
-        set_zero<K>(panel_entry<K>(diag, tile, W, r, t));
-        continue;
-      }
-      if (r == t) {
-        copy<K>(piv, v);
+    const double* d = piv + (t & 1) * 2 * K;
+    if (u < rows) {
+      if (t >= 1) regs::store<K>(fin, panel_entry<K>(diag, tile, W, u, t - 1));
+      if (u < t) {
+        regs::static_for<0, K>([&](auto I) { fin[EXP_IDX(I)] = 0.0; });
       } else {
-        op_mul<K>(panel_entry<K>(diag, tile, W, r, t), piv + K, v);
+        double v[K];
+        if (u == t) {
+          regs::load<K>(d, v);
+        } else {
+          double x[K], y[K];
+          regs::load<K>(panel_entry<K>(diag, tile, W, u, t), x);
+          regs::load<K>(d + K, y);
+          regs::mul<K>(x, y, em, v);
+        }
+        regs::store<K>(v, mult + (long)u * K);
+        // the W - t zero additions, until one leaves v unchanged
+        double z[K];
+        regs::static_for<0, K>([&](auto I) { z[EXP_IDX(I)] = 0.0; });
+#pragma unroll 1
+        for (int i = 0; i < W - t; ++i) {
+          double o[K];
+          regs::add<K>(v, z, em, o);
+          if (same_bits<K>(o, v)) break;
+          regs::static_for<0, K>([&](auto I) { v[EXP_IDX(I)] = o[EXP_IDX(I)]; });
+        }
+        regs::static_for<0, K>([&](auto I) { fin[EXP_IDX(I)] = v[EXP_IDX(I)]; });
       }
-      copy<K>(v, mult + (long)r * K);
-      zero_adds<K>(v, W - t);
-      copy<K>(v, panel_entry<K>(diag, tile, W, r, t));
     }
-    EXP_SYNC();
+    EXP_SYNC_UPDATE(nu);
     const int nc = W - 1 - t;
-    for (long w = tid; w < (long)rows * nc; w += nthreads) {
+#pragma unroll 1
+    for (long w = u; w < (long)rows * nc; w += nu) {
       const int r = (int)(w / nc), c = t + 1 + (int)(w % nc);
-      if (r < c) continue;  // the pivot block's upper triangle
-      double p[K], v[K];
-      op_mul<K>(mult + (long)r * K, mult + (long)c * K, p);
-      for (int i = 0; i < K; ++i) p[i] = -p[i];
+      if (r < c || (r == t + 1 && c == t + 1)) continue;
       double* e = panel_entry<K>(diag, tile, W, r, c);
-      op_add<K>(e, p, v);
-      copy<K>(v, e);
+      double acc[K], x[K], y[K], p[K], o[K];
+      regs::load<K>(e, acc);
+      regs::load<K>(mult + (long)r * K, x);
+      regs::load<K>(mult + (long)c * K, y);
+      regs::mul<K>(x, y, em, p);
+      regs::static_for<0, K>([&](auto I) { p[EXP_IDX(I)] = -p[EXP_IDX(I)]; });
+      regs::add<K>(acc, p, em, o);
+      regs::store<K>(o, e);
     }
-    EXP_SYNC();
   }
+  if (u < rows) regs::store<K>(fin, panel_entry<K>(diag, tile, W, u, W - 1));
 }
 
-// One block's share of the substitution X = L^-1 B (or L^-T B): the
-// columns col0 .. col0 + tm - 1 of one batch element's right-hand side,
-// L (n, n), B and X (n, m), inv_d (n) values of K words.  ``tree``
-// holds n tm K doubles.
+// ---------------------------------------------------------------------------
+// The substitution
+// ---------------------------------------------------------------------------
+
+// K words of v from lane ``src`` of the warp.
+template <int K>
+EXP_HD void shfl_words(const double (&v)[K], int src, double (&out)[K]) {
+#ifdef EXP_SHFL_WORDS
+  EXP_SHFL_WORDS(v, src, out);
+#else
+  regs::static_for<0, K>([&](auto I) {
+    out[EXP_IDX(I)] = EXP_SHFL(v[EXP_IDX(I)], src);
+  });
+#endif
+}
+
+constexpr int kSolveInlineWords = 16;
+
+// Shared memory of a substitution block, in doubles: each thread's
+// scratch and the x of its two leaves, and each warp's scratch.
+template <int K>
+EXP_HD constexpr long solve_smem_words(int nthreads) {
+  return (long)(regs::thread_words<K>() + 2 * K) * nthreads +
+         (long)(nthreads / 32) * warp::scratch_words<K>();
+}
+
+// One block's share of the substitution X = L^-1 B (or L^-T B): batch
+// element's L (n, n), B and X (n, m), inv_d (n) values of K words, n <=
+// 2G <= 64.  A group of G lanes (G a power of two, 32 / G groups a warp)
+// solves one right-hand-side column, ``col0`` + the block's group index;
+// groups past m - 1 idle.
 //
-// Per row i, in the plain loop's order: the n terms mul(l_ik, x_k)
-// (a term whose k is masked, k >= i forward or k <= i backward, is
-// mul(+0, +0) = +0 and is written so), their sum by mp/core.py sum_'s
+// Per row i, in the plain loop's order: the n terms mul(l_ik, x_k) (a
+// term whose k is masked, k >= i forward or k <= i backward, is
+// mul(+0, +0) = +0 and is not computed), their sum by mp/core.py sum_'s
 // tree (level by level: a[p] + a[p + h] for p < h = len/2, an odd last
-// term carried to the next level), then x_i = mul(add(b_i, -sum),
-// inv_d_i).  The tree works in place: the p-th partial sum stays in
-// slot p and the carried last term in its slot (``tail``).  A pair of
-// +0 values adds to +0 and is skipped.
+// term carried to index h), then x_i = mul(add(b_i, -sum), inv_d_i).  A
+// pair of +0 values adds to +0 and is skipped.
+//
+// The layout.  Lane p of a group holds the tree's leaf p, and where
+// n > G also leaf p + n/2 (the first level's partner, added in the
+// lane) and, for odd n, lane n/2 the carried last leaf.  So a row is one
+// product (two where n > G) on every lane at once, the tree's levels by
+// shuffles within the group (no barrier), and x_i formed by every lane
+// of the group at once; the lane that holds leaf i keeps x_i in its
+// registers for the rows below.
 template <int K>
 EXP_BLOCK void solve_block(const double* L, const double* B,
-                        const double* inv_d, double* X, int n, int m,
-                        int col0, int tm, bool transpose, double* tree,
-                        int tid, int nthreads) {
+                           const double* inv_d, double* X, int n, int m,
+                           int col0, int G, bool transpose, double* sh,
+                           int tid, int nthreads) {
+  const regs::Emit em{sh + tid, nthreads};
+  const int lane = tid & 31, p = lane & (G - 1), base = lane - p;
+  const int col = col0 + (tid >> 5) * (32 / G) + lane / G;
+  const bool active = col < m;
+  const int q = active ? col : m - 1;
+  const bool two = n > G;
+  const int h1 = n / 2;
+  int l0, l1;
+  if (!two) {
+    l0 = p < n ? p : -1;
+    l1 = -1;
+  } else {
+    l0 = p < h1 ? p : (p == h1 && (n & 1) ? 2 * h1 : -1);
+    l1 = p < h1 ? p + h1 : -1;
+  }
+  // the x of the lane's two leaves, in its scratch after the operations'
+  double* xs = sh + (long)regs::thread_words<K>() * nthreads + tid;
+  // a group of 32 lanes forms x_i's product as a warp operation (out of
+  // line above K = kSolveInlineWords, where the per-thread add's 64 words
+  // leave no registers for it)
+  const warp::Scratch<K> ws(sh + (long)(regs::thread_words<K>() + 2 * K) *
+                                     nthreads +
+                            (long)(tid >> 5) * warp::scratch_words<K>());
+  if constexpr (K >= 3)
+    if (G == 32) warp::init_codes<K>(ws, lane);
+  double x0[K], x1[K];
 #pragma unroll 1
   for (int s = 0; s < n; ++s) {
     const int i = transpose ? n - 1 - s : s;
-    for (int w = tid; w < n * tm; w += nthreads) {
-      const int k = w / tm, q = w % tm;
-      double* dst = tree + (long)w * K;
-      if (transpose ? k <= i : k >= i) {
-        set_zero<K>(dst);
-        continue;
-      }
-      const double* lik = L + (long)(transpose ? k * n + i : i * n + k) * K;
-      op_mul<K>(lik, X + ((long)k * m + col0 + q) * K, dst);
+    double v[K];
+    const bool live0 = l0 >= 0 && (transpose ? l0 > i : l0 < i);
+    if (live0) {
+      double lik[K];
+      regs::load<K>(L + (long)(transpose ? l0 * n + i : i * n + l0) * K, lik);
+      regs::load_strided<K>(xs, nthreads, x0);
+      regs::mul<K>(lik, x0, em, v);
+    } else {
+      regs::static_for<0, K>([&](auto I) { v[EXP_IDX(I)] = 0.0; });
     }
-    EXP_SYNC();
-    int len = n, tail = n - 1;
+    int len = n;
+    if (two) {
+      const bool live1 = l1 >= 0 && (transpose ? l1 > i : l1 < i);
+      if (l1 >= 0 && (live0 || live1)) {
+        double w[K], o[K];
+        if (live1) {
+          double lik[K];
+          regs::load<K>(L + (long)(transpose ? l1 * n + i : i * n + l1) * K,
+                        lik);
+          regs::load_strided<K>(xs + (long)K * nthreads, nthreads, x1);
+          regs::mul<K>(lik, x1, em, w);
+        } else {
+          regs::static_for<0, K>([&](auto I) { w[EXP_IDX(I)] = 0.0; });
+        }
+        regs::add<K>(v, w, em, o);
+        regs::static_for<0, K>([&](auto I) { v[EXP_IDX(I)] = o[EXP_IDX(I)]; });
+      }
+      len = h1 + (n & 1);
+    }
 #pragma unroll 1
     while (len > 1) {
-      const int h = len / 2;
-      for (int w = tid; w < h * tm; w += nthreads) {
-        const int p = w / tm, q = w % tm;
-        const int pb = p + h == len - 1 ? tail : p + h;
-        double* a = tree + ((long)p * tm + q) * K;
-        const double* b = tree + ((long)pb * tm + q) * K;
-        if (is_pos_zero<K>(a) && is_pos_zero<K>(b)) continue;
-        double o[K];
-        op_add<K>(a, b, o);
-        copy<K>(o, a);
+      const int h = len / 2, odd = len & 1;
+      const int src = p < h ? p + h : (odd && p == h ? 2 * h : p);
+      double w[K];
+      shfl_words<K>(v, base + src, w);
+      if (p < h) {
+        if (!(is_pos_zero<K>(v) && is_pos_zero<K>(w))) {
+          double o[K];
+          regs::add<K>(v, w, em, o);
+          regs::static_for<0, K>([&](auto I) { v[EXP_IDX(I)] = o[EXP_IDX(I)]; });
+        }
+      } else if (odd && p == h) {
+        regs::static_for<0, K>([&](auto I) { v[EXP_IDX(I)] = w[EXP_IDX(I)]; });
       }
-      EXP_SYNC();
-      if (!(len & 1)) tail = h - 1;
-      len = h + (len & 1);
+      len = h + odd;
     }
-    for (int q = tid; q < tm; q += nthreads) {
-      const double* acc = tree + ((long)tail * tm + q) * K;
-      double na[K], r[K], o[K];
-      for (int t = 0; t < K; ++t) na[t] = -acc[t];
-      op_add<K>(B + ((long)i * m + col0 + q) * K, na, r);
-      op_mul<K>(r, inv_d + (long)i * K, o);
-      copy<K>(o, X + ((long)i * m + col0 + q) * K);
+    double sum[K], bi[K], r[K], di[K], xi[K];
+    shfl_words<K>(v, base, sum);
+    regs::load<K>(B + ((long)i * m + q) * K, bi);
+    regs::static_for<0, K>([&](auto I) { sum[EXP_IDX(I)] = -sum[EXP_IDX(I)]; });
+    regs::add<K>(bi, sum, em, r);
+    regs::load<K>(inv_d + (long)i * K, di);
+    bool done = false;
+    if constexpr (K >= 3) {
+      if (G == 32) {
+        regs::store<K>(r, ws.x);
+        regs::store<K>(di, ws.y);
+        EXP_SYNC_WARP();
+        warp::Res res;
+        if constexpr (K <= kSolveInlineWords) {
+          res = warp::mul<K>(ws, lane);
+        } else {
+          res = warp::mul_out_of_line<K>(ws, lane);
+        }
+        EXP_SYNC_WARP();
+        regs::static_for<0, K>([&](auto I) {
+          constexpr int t = EXP_IDX(I);
+          xi[t] = t < res.j ? ws.emit[t] : (t == res.j ? res.e : 0.0);
+        });
+        EXP_SYNC_WARP();
+        done = true;
+      }
     }
-    EXP_SYNC();
+    if (!done) regs::mul<K>(r, di, em, xi);
+    if (l0 == i) regs::store_strided<K>(xi, xs, nthreads);
+    if (l1 == i) regs::store_strided<K>(xi, xs + (long)K * nthreads, nthreads);
+    if (active && p == 0) regs::store<K>(xi, X + ((long)i * m + q) * K);
   }
 }
 

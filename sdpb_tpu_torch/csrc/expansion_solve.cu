@@ -11,24 +11,29 @@
 // the host's launch cost set the time.
 //
 // What bounds it on this card.  A row's value depends on every row
-// before it: per row a product, ceil(log2 n) tree additions, an
-// addition and a product, one after another (~8 us at K = 8), so one
-// launch is a chain of ~n such steps: latency, unless the batch is
-// wide.  The work beside it, n^2 m / 2 products and additions, against
-// the card's 17e12 float64 operations a second (no FMA: -fmad=false)
-// is ~1 ms at the widest solve of one iteration (48 blocks of 32 rows
-// against 384 columns) and microseconds at the narrow ones.
+// before it: per row a product, ceil(log2 n) tree sums, a sum and a
+// product, one after another, so one launch is a chain of ~n such steps:
+// latency, unless the right-hand side is wide.  Each operation is issue-
+// bound on its own warp (a K = 8 product ~6,000 cycles, a sum ~1,200,
+// csrc/expansion_latency.cu).  The work beside it, n^2 m / 2 products and
+// sums, against the card's 17e12 float64 operations a second (no FMA:
+// -fmad=false), is ~1 ms at the widest solve of one iteration (48
+// blocks of 32 rows against 384 columns).
 //
-// What the design does about it.  One launch carries the whole loop.
-// A block takes one batch element and a tile of up to 16 right-hand-
-// side columns (ops/expansion_kernels.py solve_tile: fewer where n K
-// words a column would not fit 48 KB of shared memory), so batch x
-// tiles blocks run the chains side by side.  A row step: the block
-// forms the row's n x tile products into shared memory (a masked term
-// is +0 and costs a store), adds the tree level by level, a thread per
-// pair, and forms x_i, a thread per column, one __syncthreads()
-// between the phases.  x and L are read from device memory (L1/L2);
-// the expansion operations are out-of-line functions, one copy each.
+// What the design does about it (rather than a block over a tile of
+// columns, with a block barrier a tree level).
+// A group of G lanes (a power of two, n <= 2G) solves one column: lane p
+// holds the tree's leaf p (and leaf p + n/2 where n > G, added in the
+// lane), so a row is one product on every lane at once, the tree's
+// levels shuffles within the group, no block barrier at all; every lane
+// of the group forms x_i, and the lane that holds leaf i keeps it in its
+// scratch.  The wrapper takes one leaf a lane (G >= n) while the columns
+// are few, for the shortest row, and two a lane (half the lanes, twice
+// the columns a warp) where the columns fill the card
+// (ops/expansion_kernels.py solve_lanes).  With a whole warp a column,
+// x_i's product is a warp operation (csrc/expansion_warp.cuh).  Four
+// warps a block; the operations keep their words in registers or the
+// thread's shared-memory scratch: no local memory, no spill at any K.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -c -Xcompiler -fPIC -DEXP_K=<K>
@@ -40,28 +45,25 @@
 
 namespace {
 
-// Threads a block.  One block an SM suffices (__launch_bounds__ min
-// blocks 1): without that bound ptxas gives these kernels fewer
-// registers than their out-of-line operations' calls need and spills
-// around the calls, at some K of 1..20.
+// Threads a block: four warps, each 32 / G right-hand-side columns.
 constexpr int kThreads = 128;
 
 // L (bb, n, n, K), B and X (bb, n, m, K), inv_d (bb, n, K): block
-// b * tiles + tile solves batch element b's columns tile * tm ... .
+// b * tiles + tile solves batch element b's columns tile * cpb ...,
+// cpb = 4 * 32 / G columns a block.
 template <int K>
 __global__ void __launch_bounds__(kThreads, 1)
     exp_solve_kernel(const double* __restrict__ L,
                      const double* __restrict__ B,
                      const double* __restrict__ inv_d, double* X, int n,
-                     int m, int tm, int tiles, int transpose) {
-  extern __shared__ double tree[];
+                     int m, int G, int tiles, int transpose) {
+  extern __shared__ double sh[];
   const int b = blockIdx.x / tiles, tile = blockIdx.x % tiles;
-  const int col0 = tile * tm;
+  const int cpb = (kThreads / 32) * (32 / G);
   const long nm = (long)n * m * K;
   expn::solve_block<K>(L + (long)b * n * n * K, B + b * nm,
-                       inv_d + (long)b * n * K, X + b * nm, n, m, col0,
-                       min(tm, m - col0), transpose != 0, tree, threadIdx.x,
-                       kThreads);
+                       inv_d + (long)b * n * K, X + b * nm, n, m, tile * cpb,
+                       G, transpose != 0, sh, threadIdx.x, kThreads);
 }
 
 }  // namespace
@@ -76,15 +78,23 @@ extern "C" {
 
 int EXP_PASTE(expansion_solve_k, EXP_K)(const double* L, const double* B,
                                         const double* inv_d, double* X,
-                                        int bb, int n, int m, int tm,
+                                        int bb, int n, int m, int G,
                                         int transpose, void* stream) {
-  if (bb < 1 || n < 1 || m < 1 || tm < 1 || EXP_K > expn::kMaxWords)
+  if (bb < 1 || n < 1 || m < 1 || G < 1 || G > 32 || (G & (G - 1)) ||
+      n > 2 * G || EXP_K > expn::kMaxWords)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)n * tm * EXP_K * sizeof(double);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  const int tiles = (m + tm - 1) / tm;
+  const size_t smem =
+      (size_t)expn::solve_smem_words<EXP_K>(kThreads) * sizeof(double);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        exp_solve_kernel<EXP_K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int cpb = (kThreads / 32) * (32 / G);
+  const int tiles = (m + cpb - 1) / cpb;
   exp_solve_kernel<EXP_K><<<bb * tiles, kThreads, smem,
-                            (cudaStream_t)stream>>>(L, B, inv_d, X, n, m, tm,
+                            (cudaStream_t)stream>>>(L, B, inv_d, X, n, m, G,
                                                     tiles, transpose);
   return (int)cudaGetLastError();
 }

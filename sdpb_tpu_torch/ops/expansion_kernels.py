@@ -11,8 +11,10 @@ are ``mp/core.py``'s ``add_plain`` ... ``mul_f64_plain``.
 ``exp_cholesky_panel`` and ``exp_solve_unblocked`` run a whole column
 loop of the expansion Cholesky and of the triangular substitution per
 launch (``csrc/expansion_chol.cu``, ``csrc/expansion_solve.cu`` over
-``csrc/expansion_panels.cuh``), where the JAX package's ``fori_loop``s
-are one XLA program.  Their plain versions, ``cholesky_panel_plain``
+``csrc/expansion_panels.cuh``: a Cholesky's pivots on a warp of their
+own ahead of the update, ``csrc/expansion_warp.cuh``, the rest a value
+per thread, ``csrc/expansion_regs.cuh``), where the JAX package's
+``fori_loop``s are one XLA program.  Their plain versions, ``cholesky_panel_plain``
 and ``solve_unblocked_plain``, are the loops over the elementwise
 operations.
 
@@ -41,7 +43,8 @@ import torch
 from ..mp import core
 from .limb_kernels import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc, _status
 
-SOURCES = ("expansion.cuh", "expansion_panels.cuh",
+SOURCES = ("expansion.cuh", "expansion_regs.cuh", "expansion_warp.cuh",
+           "expansion_panels.cuh",
            "expansion_elementwise.cu", "expansion_chol.cu",
            "expansion_solve.cu")
 # Each unit is compiled once per K (-DEXP_K); the elementwise unit's
@@ -53,12 +56,16 @@ MAX_WORDS = 20
 # csrc/expansion_elementwise.cu kThreads: threads a block, one value each.
 EXPANSION_THREADS = 128
 # The column-loop kernels (csrc/expansion_chol.cu, expansion_solve.cu):
-# rows below the pivot block a Cholesky block takes, right-hand-side
-# columns a solve block takes at most, and the shared memory of the
-# solve's tree (n x tile values of K words).
+# a Cholesky block's rows (its threads, 128, but the pivot warp: one
+# update thread a row, so W + rows below it <= CHOL_MAX_ROWS), and the
+# rows below the pivot block a block takes at most.
+CHOL_MAX_ROWS = 96
 CHOL_ROW_TILE = 32
-SOLVE_MAX_TILE = 16
-SOLVE_SMEM = 48 * 1024
+# Above this many groups of G lanes that hold one leaf each, a solve
+# packs two leaves a lane (half the lanes a column): the columns then
+# fill the card, and a row costs a warp two products for twice the
+# columns.
+SOLVE_LATENCY_GROUPS = 1024
 
 LAUNCHES = {"exp_add": 0, "exp_mul": 0, "exp_div": 0, "exp_add_f64": 0,
             "exp_mul_f64": 0, "exp_cholesky_panel": 0,
@@ -313,59 +320,81 @@ def solve_unblocked_plain(l, b, inv_d, transpose: bool = False):
     return x
 
 
+def chol_row_tile(W: int) -> int:
+    """Rows below the pivot block a Cholesky block takes: at most
+    CHOL_ROW_TILE, and W + tile <= CHOL_MAX_ROWS (one update thread a
+    row)."""
+    return max(1, min(CHOL_ROW_TILE, CHOL_MAX_ROWS - W))
+
+
 def exp_cholesky_panel(c):
     """The column loop of a Cholesky panel c (BB, R, W, K) in one launch
     (``cholesky_panel_plain`` on the CPU): one block per batch element
-    and tile of CHOL_ROW_TILE rows below the pivot block."""
+    and tile of chol_row_tile(W) rows below the pivot block; on the card
+    W < CHOL_MAX_ROWS (the port's panels are 32 wide, its unblocked
+    factors at most 64)."""
     if not _on_cuda("exp_cholesky_panel", c):
         return cholesky_panel_plain(c)
     BB, R, W, k = c.shape
     if R < W:
         raise ValueError(f"exp_cholesky_panel: {R} rows < {W} columns")
+    if R > W and W >= CHOL_MAX_ROWS or W > CHOL_MAX_ROWS:
+        raise ValueError(f"exp_cholesky_panel: {W} columns exceed the "
+                         f"kernel's {CHOL_MAX_ROWS} rows a block")
     check_words("exp_cholesky_panel", k)
     c = c.contiguous()
     out = torch.empty_like(c)
     if out.numel() == 0:
         return out
-    tiles = max(1, -(-(R - W) // CHOL_ROW_TILE))
+    rt = chol_row_tile(W)
+    tiles = max(1, -(-(R - W) // rt))
     # the private pivot blocks of every block but a panel's first
     scratch = torch.empty(((tiles - 1) * BB, W, W, k), dtype=c.dtype,
                           device=c.device)
     err = getattr(_lib(), f"expansion_chol_k{k}")(
         c.data_ptr(), out.data_ptr(),
-        scratch.data_ptr() if tiles > 1 else None, BB, R, W, tiles,
-        CHOL_ROW_TILE, torch.cuda.current_stream(c.device).cuda_stream)
+        scratch.data_ptr() if tiles > 1 else None, BB, R, W, tiles, rt,
+        torch.cuda.current_stream(c.device).cuda_stream)
     _status("exp_cholesky_panel", err)
     LAUNCHES["exp_cholesky_panel"] += 1
     return out
 
 
-def solve_tile(n: int, m: int, k: int) -> int:
-    """Right-hand-side columns a solve block takes: at most
-    SOLVE_MAX_TILE, and n x tile values of K words in SOLVE_SMEM."""
-    return max(1, min(m, SOLVE_MAX_TILE, SOLVE_SMEM // (n * k * 8)))
+def solve_lanes(bb: int, n: int, m: int) -> int:
+    """Lanes G of a solve's group (one right-hand-side column; a power of
+    two, n <= 2G <= 64): one leaf of the row's tree a lane (G >= n, G <=
+    32) while the columns are few, so that a row costs one product;
+    else two a lane (G >= n / 2), twice the columns a warp."""
+    one = 1 << max(0, (n - 1).bit_length())
+    two = 1 << max(0, (-(-n // 2) - 1).bit_length())
+    if one <= 32 and bb * m <= SOLVE_LATENCY_GROUPS:
+        return one
+    return max(two, 1)
 
 
 def exp_solve_unblocked(l, b, inv_d, transpose: bool = False):
     """X = L^-1 B (or L^-T B) by substitution in one launch
     (``solve_unblocked_plain`` on the CPU): l (BB, n, n, K) lower, b
-    (BB, n, m, K), inv_d (BB, n, K) the diagonal's reciprocals."""
+    (BB, n, m, K), inv_d (BB, n, K) the diagonal's reciprocals; on the
+    card n <= 64 (the port's unblocked solves and panels)."""
     if not _on_cuda("exp_solve_unblocked", l, b, inv_d):
         return solve_unblocked_plain(l, b, inv_d, transpose)
     BB, n, m, k = b.shape
     if l.shape != (BB, n, n, k) or inv_d.shape != (BB, n, k):
         raise ValueError(f"exp_solve_unblocked: shapes {tuple(l.shape)}, "
                          f"{tuple(b.shape)}, {tuple(inv_d.shape)}")
+    if n > 64:
+        raise ValueError(f"exp_solve_unblocked: {n} rows exceed the "
+                         f"kernel's 64")
     check_words("exp_solve_unblocked", k)
-    tm = solve_tile(n, m, k)
+    lanes = solve_lanes(BB, n, m)
     l, b, inv_d = l.contiguous(), b.contiguous(), inv_d.contiguous()
     out = torch.empty_like(b)
     if out.numel() == 0:
         return out
-    # the launcher refuses a tree above 48 KB (n > 307 rows at K = 20)
     err = getattr(_lib(), f"expansion_solve_k{k}")(
         l.data_ptr(), b.data_ptr(), inv_d.data_ptr(), out.data_ptr(), BB, n,
-        m, tm, int(transpose),
+        m, lanes, int(transpose),
         torch.cuda.current_stream(b.device).cuda_stream)
     _status("exp_solve_unblocked", err)
     LAUNCHES["exp_solve_unblocked"] += 1

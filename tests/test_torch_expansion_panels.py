@@ -3,15 +3,20 @@ loops, on the CPU.
 
 ``csrc/expansion_panels.cuh`` holds what one thread block of
 ``csrc/expansion_chol.cu`` and ``csrc/expansion_solve.cu`` does, written
-against a thread index and a barrier.  Here it is compiled with g++
--ffp-contract=off (nvcc runs with -fmad=false), each block run by
-several host threads with a ``std::barrier`` as ``__syncthreads()``,
+against a thread index, the block's barriers and a warp shuffle.  Here
+it is compiled with g++ -ffp-contract=off (nvcc runs with -fmad=false),
+each block run by one host thread per CUDA thread (128), with
+``std::barrier`` as ``__syncthreads()``, as the Cholesky's named barrier
+and as ``__syncwarp()``, and an exchange through memory as the shuffle;
 the blocks one after another in reverse order (a block that read
-another's output would see it unwritten), and held bit for bit, NaN
+another's output would see it unwritten).  It is held bit for bit, NaN
 positions included, against ``cholesky_panel_plain`` and
 ``solve_unblocked_plain`` (ops/expansion_kernels.py): the unblocked
 Cholesky (R == W == n), tall panels (R > W, several row tiles), and
-both solve orientations with several column tiles.
+both solve orientations with several column groups, in both lane
+layouts, at K = 2, 4, 8 and 20.  The emulation checks arithmetic,
+indexing and the barriers' placement, not timing; chip_smoke.py phase 3
+holds the kernels on the card to the same bits.
 
 The pivots' sqrt_rsqrt starts from torch.rsqrt of the leading word,
 which on the CPU is 1 / sqrt (one rounding each), and the host build
@@ -33,30 +38,72 @@ from sdpb_tpu_torch.ops import expansion_kernels as ek
 
 from torch_port_util import one_torch_thread  # noqa: F401,E402
 
-HOST_KS = (2, 4, 8)
-THREADS = 4
+HOST_KS = (2, 4, 8, 20)
+PANEL_KS = (2, 4, 8)
+# csrc/expansion_chol.cu kThreads; the solve's emulated blocks take one
+# warp (csrc/expansion_solve.cu's take four, each warp on its own).
+THREADS = 128
+SOLVE_THREADS = 32
 
 HARNESS = r"""
 #include <algorithm>
 #include <barrier>
+#include <memory>
 #include <thread>
 #include <vector>
 
-static std::barrier<>* g_sync;
+// One block's barriers: __syncthreads(), the Cholesky's update threads'
+// named barrier, each warp's __syncwarp(), and the shuffles' exchange
+// (two buffers a warp, used in turn, so that one warp barrier a shuffle
+// suffices).
+struct BlockSync {
+  std::unique_ptr<std::barrier<>> block, update;
+  std::vector<std::unique_ptr<std::barrier<>>> warp;
+  std::vector<double> xch;
+};
+static BlockSync* g_bs;
+static thread_local int g_tid;
+constexpr int kXchWords = 20;  // expn::kMaxWords
+static thread_local unsigned g_gen;
+
+static void emu_sync_warp() { g_bs->warp[g_tid >> 5]->arrive_and_wait(); }
+
+// __shfl_sync of K words from lane ``src`` of the warp.
+template <int K>
+static void emu_shfl_words(const double* v, int src, double* out) {
+  const int w = g_tid >> 5;
+  double* x = g_bs->xch.data() + ((size_t)w * 2 + (g_gen++ & 1)) * 32 *
+                                     kXchWords;
+  for (int t = 0; t < K; ++t) x[(g_tid & 31) * kXchWords + t] = v[t];
+  emu_sync_warp();
+  for (int t = 0; t < K; ++t) out[t] = x[(src & 31) * kXchWords + t];
+}
+
 #define EXP_HD inline
 #define EXP_BLOCK inline
-#define EXP_OP inline
-#define EXP_SYNC() g_sync->arrive_and_wait()
+#define EXP_OUT_OF_LINE inline
+#define EXP_SYNC() g_bs->block->arrive_and_wait()
+#define EXP_SYNC_UPDATE(n) g_bs->update->arrive_and_wait()
+#define EXP_SYNC_WARP() emu_sync_warp()
+#define EXP_SHFL_WORDS(v, src, out) emu_shfl_words<K>(v, src, out)
 #include "expansion_panels.cuh"
 
-// One block: ``nthreads`` host threads on the body, the barrier as
-// __syncthreads().
+// One block: ``nthreads`` host threads on the body.
 template <class F>
 static void run_block(int nthreads, F body) {
-  std::barrier<> sync(nthreads);
-  g_sync = &sync;
+  BlockSync bs;
+  bs.block.reset(new std::barrier<>(nthreads));
+  bs.update.reset(new std::barrier<>(std::max(1, nthreads - 32)));
+  for (int w = 0; w < nthreads / 32; ++w)
+    bs.warp.emplace_back(new std::barrier<>(32));
+  bs.xch.resize((size_t)nthreads * 2 * kXchWords);
+  g_bs = &bs;
   std::vector<std::thread> threads;
-  for (int t = 0; t < nthreads; ++t) threads.emplace_back(body, t);
+  for (int t = 0; t < nthreads; ++t)
+    threads.emplace_back([&body, t] {
+      g_tid = t;
+      body(t);
+    });
   for (auto& t : threads) t.join();
 }
 
@@ -74,7 +121,8 @@ static void chol(const double* in, double* out, int bb, int R, int W,
     const int nt = std::max(0, std::min(rt, R - row0));
     double* diag = tile == 0 ? out + b * panel
         : scratch.data() + ((long)b * (tiles - 1) + tile - 1) * W * W * K;
-    std::vector<double> sh((size_t)(W + rt + 2) * K);
+    std::vector<double> sh(
+        expn::chol_smem_words<K>(W + (R > W ? rt : 0), nthreads), -1e300);
     run_block(nthreads, [&](int tid) {
       expn::chol_panel_block<K>(in + b * panel, in + b * panel
                                 + (long)row0 * W * K, diag, out + b * panel
@@ -84,21 +132,22 @@ static void chol(const double* in, double* out, int bb, int R, int W,
   }
 }
 
-// csrc/expansion_solve.cu's grid: block b * tiles + tile.
+// csrc/expansion_solve.cu's grid: block b * tiles + tile, 4 * 32 / G
+// columns a block.
 template <int K>
 static void solve(const double* L, const double* B, const double* inv_d,
-                  double* X, int bb, int n, int m, int tm, int transpose,
+                  double* X, int bb, int n, int m, int G, int transpose,
                   int nthreads) {
-  const int tiles = (m + tm - 1) / tm;
+  const int cpb = nthreads / 32 * (32 / G);
+  const int tiles = (m + cpb - 1) / cpb;
   for (int blk = bb * tiles - 1; blk >= 0; --blk) {
-    const int b = blk / tiles, col0 = (blk % tiles) * tm;
-    std::vector<double> tree((size_t)n * tm * K);
+    const int b = blk / tiles, col0 = (blk % tiles) * cpb;
+    std::vector<double> sh(expn::solve_smem_words<K>(nthreads), -1e300);
     const long nm = (long)n * m * K;
     run_block(nthreads, [&](int tid) {
       expn::solve_block<K>(L + (long)b * n * n * K, B + b * nm,
                            inv_d + (long)b * n * K, X + b * nm, n, m, col0,
-                           std::min(tm, m - col0), transpose != 0,
-                           tree.data(), tid, nthreads);
+                           G, transpose != 0, sh.data(), tid, nthreads);
     });
   }
 }
@@ -113,7 +162,7 @@ extern "C" int host_chol(int k, const double* in, double* out, int bb, int R,
 
 extern "C" int host_solve(int k, const double* L, const double* B,
                           const double* inv_d, double* X, int bb, int n,
-                          int m, int tm, int transpose, int nthreads) {
+                          int m, int G, int transpose, int nthreads) {
   switch (k) {
     SOLVE_CASES
   }
@@ -134,7 +183,7 @@ def host(tmp_path_factory):
     d = tmp_path_factory.mktemp("expansion_panels_host")
     chol = " ".join(f"case {k}: chol<{k}>(in, out, bb, R, W, rt, nthreads); "
                     f"return 0;" for k in HOST_KS)
-    solve = " ".join(f"case {k}: solve<{k}>(L, B, inv_d, X, bb, n, m, tm, "
+    solve = " ".join(f"case {k}: solve<{k}>(L, B, inv_d, X, bb, n, m, G, "
                      f"transpose, nthreads); return 0;" for k in HOST_KS)
     (d / "harness.cpp").write_text(HARNESS.replace("CHOL_CASES", chol)
                                    .replace("SOLVE_CASES", solve))
@@ -186,13 +235,24 @@ def _host_chol(so, c, rt):
     return out
 
 
-def _host_solve(so, l, b, inv_d, transpose, tm):
+def _host_solve(so, l, b, inv_d, transpose, lanes):
+    """The solve's blocks share nothing but their warps' columns: here a
+    block of one warp (SOLVE_THREADS), so that the host threads wait at
+    fewer barriers."""
     out = torch.empty_like(b)
     bb, n, m, k = b.shape
     assert so.host_solve(k, l.data_ptr(), b.data_ptr(), inv_d.data_ptr(),
-                         out.data_ptr(), bb, n, m, tm, int(transpose),
-                         THREADS) == 0
+                         out.data_ptr(), bb, n, m, lanes, int(transpose),
+                         SOLVE_THREADS) == 0
     return out
+
+
+def _layouts(n):
+    """The solve's lanes a column: one leaf a lane (n <= G <= 32) and two
+    (n / 2 <= G), each as small as it can be."""
+    one = 1 << (n - 1).bit_length()
+    two = 1 << (-(-n // 2) - 1).bit_length()
+    return [g for g in (one, two) if g <= 32 and n <= 2 * g]
 
 
 def _panel(rng, bb, rows, w, k):
@@ -225,7 +285,7 @@ def _lower_factor(rng, bb, n, k):
     return lfac, core.recip(lfac[:, didx, didx, :]).contiguous()
 
 
-@pytest.mark.parametrize("k", HOST_KS)
+@pytest.mark.parametrize("k", PANEL_KS)
 @pytest.mark.parametrize("n", (7, 32, 48))
 def test_cholesky_block_code_matches_plain(host, k, n):
     """Both forms of the Cholesky column loop: the unblocked factor of
@@ -240,19 +300,42 @@ def test_cholesky_block_code_matches_plain(host, k, n):
         _same(_host_chol(host, c, 8), ek.cholesky_panel_plain(c))
 
 
-@pytest.mark.parametrize("k", HOST_KS)
+@pytest.mark.parametrize("k", PANEL_KS)
 @pytest.mark.parametrize("n", (7, 32, 48))
 def test_solve_block_code_matches_plain(host, k, n):
-    """The substitution in both orientations, (2, n, n) x 11 columns over
-    column tiles of 4 (a ragged last tile), and one column."""
+    """The substitution in both orientations, (2, n, n) x 11 columns (a
+    block's columns and a ragged rest), and one column, with one and
+    with two of the tree's leaves a lane (n = 48: two)."""
     rng = np.random.default_rng(n * 10 + k + 1)
     lfac, inv_d = _lower_factor(rng, 2, n, k)
     b = _expansions(rng.standard_normal((2, n, 11)), k, rng)
     for transpose in (False, True):
         want = ek.solve_unblocked_plain(lfac, b, inv_d, transpose)
-        _same(_host_solve(host, lfac, b, inv_d, transpose, 4), want)
-        _same(_host_solve(host, lfac, b[:, :, :1].contiguous(), inv_d,
-                          transpose, 4), want[:, :, :1])
+        for lanes in _layouts(n):
+            _same(_host_solve(host, lfac, b, inv_d, transpose, lanes), want)
+            _same(_host_solve(host, lfac, b[:, :, :1].contiguous(), inv_d,
+                              transpose, lanes), want[:, :, :1])
+
+
+def test_k20_block_code_matches_plain(host):
+    """K = 20 (--precision 1060, the kernels' largest word count, where
+    mul keeps its VecSum errors in blocks formed again from their
+    boundaries): the unblocked factor of (1, 6, 6), a (1, 13, 6) panel
+    over row tiles of 4, and (1, 9, 9) x 3 solves both ways with both
+    layouts and with a whole warp a column."""
+    k = 20
+    rng = np.random.default_rng(20)
+    a = _expansions(_spd(rng, 1, 6), k, rng)
+    _same(_host_chol(host, a, 8), ek.cholesky_panel_plain(a))
+    c = _panel(rng, 1, 13, 6, k)
+    _same(_host_chol(host, c, 4), ek.cholesky_panel_plain(c))
+    lfac, inv_d = _lower_factor(rng, 1, 9, k)
+    b = _expansions(rng.standard_normal((1, 9, 3)), k, rng)
+    for transpose in (False, True):
+        want = ek.solve_unblocked_plain(lfac, b, inv_d, transpose)
+        # 32 lanes a column: x_i by the warp operation
+        for lanes in _layouts(9) + [32]:
+            _same(_host_solve(host, lfac, b, inv_d, transpose, lanes), want)
 
 
 def _unblocked_loop(a):
@@ -307,8 +390,9 @@ def test_special_values_match_plain(host, k):
     b[0, 3, 1, 0] = -np.inf
     b[1, 2] = 0.0
     for transpose in (False, True):
-        _same(_host_solve(host, lfac, b, inv_d, transpose, 2),
-              ek.solve_unblocked_plain(lfac, b, inv_d, transpose))
+        want = ek.solve_unblocked_plain(lfac, b, inv_d, transpose)
+        for lanes in _layouts(9):
+            _same(_host_solve(host, lfac, b, inv_d, transpose, lanes), want)
 
 
 def test_cpu_tensors_take_the_plain_loops():
