@@ -7,12 +7,16 @@ Run from the repository root on a machine with one NVIDIA H100:
 Phases, each printing its name and elapsed seconds:
   1. environment: card name and power limit, torch/CUDA versions, mpmath
   2. build: the limb kernels of every slot class (128, 256 and 512
-     slots) and the float64-expansion kernels of every word count
-     (K = 1..20: the elementwise kernel, the Cholesky column loop and
-     the substitution) with nvcc, one process per object, all started
+     slots), the float64-expansion library of K = 1..20 (the
+     elementwise kernel in both designs, the Cholesky column loop and
+     the substitution, each a value a thread where it can) and the
+     expansion libraries of K = 21, 23, 32, 33, 53 and 54 (every
+     operation a value a warp; one library a K, as a first call at that
+     K builds it) with nvcc, one process per object, all started
      together (registers, stack frame and spills per kernel
-     instantiation and per out-of-line function, the column-loop
-     kernels' at every K; a spill fails the phase)
+     instantiation and per out-of-line function, and each build's
+     seconds; a spill fails the phase at K <= 20, above it the spill
+     bytes are printed)
   3. kernels against their plain PyTorch versions, bit for bit: the
      factorization kernels at the full-width shapes (S = 47, 400 bits)
      and at S = 26 (--precision 212), S = 116 (--precision 1024),
@@ -22,13 +26,19 @@ Phases, each printing its name and elapsed seconds:
      CUDA-event times of back-to-back calls, and for the elementwise
      kernels, whose calls are bound by the host, also the device time
      of a CUDA graph of the calls; the five expansion kernels (add,
-     mul, div, add_f64, mul_f64) likewise at (49152, 8) and at 4096
-     values for K = 2, 4, 8 and 20, over zeros, cancellation, NaN,
-     +-inf and exponents 2^-500..2^500; the expansion Cholesky panel
-     and substitution kernels against their plain loops at the
-     full-width iteration's shapes (K = 8) and at K = 2, 4 and 20 (at
-     K = 20 also the full-width panels and solves), with a non-PD input
-     and NaN and +-inf words, every word's bits
+     mul, div, add_f64, mul_f64) likewise, in each design (a value a
+     thread at K <= 20, a value a warp at K >= 3), at (49152, 8),
+     (49152, 20) and at 4096 values for K = 2, 4, 8, 20, 23 and 54, over
+     zeros, cancellation, NaN, +-inf and exponents 2^-500..2^500, with
+     their bound and ratio; both designs' device times over 256..49152
+     values at K = 4, 8 and 20 (the design sweep that sets
+     WARP_MAX_VALUES); the expansion Cholesky panel and substitution
+     kernels against their plain loops at the full-width iteration's
+     shapes (K = 8), at K = 2, 4 and 20 (at K = 20 also the full-width
+     panels and solves) and, every operation on a warp, at K = 23 and
+     54 (the 1d SDP's shapes, (2, 32, 32) panels and (2, 32, 32) x 16
+     solves), with a non-PD input and NaN and +-inf words, every word's
+     bits
   4. the 1d quickstart SDP end to end through the sdpb CLI entry point
      at the stock contract (--precision 212): PrimalDualOptimal and the
      known objective
@@ -53,19 +63,28 @@ Phases, each printing its name and elapsed seconds:
      expansion run (objective and trajectory); (b) the full-width
      synthetic problem at 400 bits (K = 8) for 1 iteration, its time,
      phase split, peak memory against the estimate, the expansion
-     kernels' launches by caller (fewer than 5,000 elementwise ones),
+     kernels' launches by caller (fewer than 5,000 elementwise ones)
+     and the elementwise launches by values a launch and design,
      its first iteration (objectives, mu, beta and the search
      direction to 1e-30) against phase 5's limb one, and one more
      iteration under torch.profiler; (c) approx_objective's CLI on
      the card on the 1d SDP, (a)'s solution and a perturbed SDP
-     compiled by pmp2sdp, against the same CLI on the CPU; (d) the
-     full-width problem at --precision 1024 (K = 20) for 1 iteration,
-     its time, peak memory and launches, and one more iteration under
-     torch.profiler (the column-loop kernels' device time)
+     compiled by pmp2sdp, against the same CLI on the CPU, at
+     --precision 212, and at 1200 and 2800 (K = 23 and 53, every
+     operation on a warp; the CPU runs in processes of their own from
+     phase 3 on), and --precision 3000 exiting 2 on the card naming the
+     prime pool's limit; (d) the full-width problem at --precision 1024
+     (K = 20) for 1 iteration, its time, peak memory, launches and
+     elementwise launches by values a launch and design, and one more
+     iteration under torch.profiler (the column-loop kernels' device
+     time)
 
 The line before the last is one JSON object with a record per kernel
-(``ms``: CUDA events around back-to-back calls; ``device_ms``: the CUDA
-graph's time, elementwise kernels only, else null);
+and design (``exp_mul`` a value a thread, ``exp_mul_warp`` a value a
+warp, ``exp_cholesky_panel_warp`` and ``exp_solve_unblocked_warp`` the
+column loops above K = 20; ``ms``: CUDA events around back-to-back
+calls; ``device_ms``: the CUDA graph's time, elementwise kernels only,
+else null);
 the last line is {"ok": true, "device": {...}}.  Any failure raises and
 exits non-zero.  Needs a CUDA device; exits 1 without one.
 """
@@ -180,34 +199,56 @@ def phase_env() -> str:
     return card
 
 
+# The word counts above THREAD_MAX_WORDS whose libraries phase 2 builds
+# (one each, as a user's first call at that K would): the first, those
+# of phase 8c's --precision 1200 and 2800 (23, 53), the warp operations'
+# boundary (the merge network doubles its pairs above 32) and the CRT
+# prime pool's limit.
+WIDE_KS = (21, 23, 32, 33, 53, 54)
+
+
 def phase_build():
-    """Every slot class's limb library and the expansion library, all
-    units compiled at once (the two builds in two threads, each
-    starting all its nvcc processes); registers, stack and spills per
-    kernel instantiation, and a failure if one of them spills."""
+    """Every slot class's limb library, the expansion library of K =
+    1..20 and the expansion libraries of WIDE_KS, all units compiled at
+    once (each build in a thread of its own, each starting all its nvcc
+    processes); registers, stack and spills per kernel instantiation and
+    build seconds; a failure if a limb kernel or an expansion kernel at
+    K <= 20 spills (above, a warp's operations at K = 54 keep more than
+    a thread's 255 registers hold: the spill bytes are printed)."""
     t = time.time()
     from concurrent.futures import ThreadPoolExecutor
 
     from sdpb_tpu_torch.ops import expansion_kernels as ek
     from sdpb_tpu_torch.ops import limb_kernels as lk
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(2 + len(WIDE_KS)) as pool:
         limb_job = pool.submit(lk.build, force=True)
         exp_job = pool.submit(ek.build, force=True)
+        wide_jobs = {k: pool.submit(ek.build, force=True, k=k)
+                     for k in WIDE_KS}
         infos, exp_info = limb_job.result(), exp_job.result()
+        wide = {k: job.result() for k, job in wide_jobs.items()}
     spills = []
-    builds = [(f"class {cap}", info) for cap, info in infos.items()]
-    builds.append(("expansion K=1..20", exp_info))
-    for label, info in builds:
+    builds = [(f"class {cap}", info, True) for cap, info in infos.items()]
+    builds.append((f"expansion K=1..{ek.THREAD_MAX_WORDS}", exp_info, True))
+    builds += [(f"expansion K={k}", info, False) for k, info in wide.items()]
+    for label, info, strict in builds:
         print(f"{label}: nvcc build {info['seconds']:.1f} s -> "
               f"{Path(info['library']).name}", flush=True)
         for name, res in _ptxas_resources(info["ptxas"]).items():
             print(f"  {name}: {json.dumps(res)}", flush=True)
-            if res.get("spill_stores", 0) or res.get("spill_loads", 0):
+            spilled = res.get("spill_stores", 0) or res.get("spill_loads", 0)
+            if spilled and strict:
                 spills.append((label, name, res))
+            elif spilled:
+                print(f"  {name} spills at {label}: "
+                      f"{res['spill_stores']} bytes stored, "
+                      f"{res['spill_loads']} loaded", flush=True)
     for cap in infos:
         lk._lib(cap)
-    ek._lib()
+    ek._lib(1)
+    for k in WIDE_KS:
+        ek._lib(k)
     if spills:
         raise AssertionError(f"kernels spill: {spills}")
     phase("2 build", t)
@@ -226,7 +267,8 @@ def _ptxas_resources(lines):
                       r"for) '?(\w+)", line)
         if m:
             k = re.search(r"(chol_warp|solve_warp|elementwise_warp|"
-                          r"expansion|exp_chol|exp_solve)_kernelI"
+                          r"exp_thread|exp_warp|exp_chol_warps|"
+                          r"exp_solve_warps|exp_chol|exp_solve)_kernelI"
                           r"((?:Li\d+E)+)E", m.group(1))
             f = re.search(r"4expn(4warp)?\d+(\w+?)ILi(\d+)E", m.group(1))
             cur = (f"{k.group(1)}_kernel<"
@@ -408,6 +450,7 @@ def phase_kernels(dev):
     for n, k in EXPANSION_SHAPES:
         for name, recs in _expansion_checks(dev, rng, k, n).items():
             rows.setdefault(name, []).extend(recs)
+    _design_sweep(dev, rng)
     for name, recs in _panel_checks(dev, rng).items():
         rows.setdefault(name, []).extend(recs)
     phase("3 kernels vs plain", t)
@@ -495,11 +538,24 @@ def _elementwise_checks(dev, rng, S, n):
 
 
 # Expansion kernels (values, K): one full-width operation at K = 8 (400
-# bits; the Schur complement's 48 x 32 x 32 values, as for the limbs),
-# then 4096 values at K = 2, 4, 8 and 20 (--precision 1060, the largest
-# the kernels take).
+# bits; the Schur complement's 48 x 32 x 32 values, as for the limbs) and
+# at K = 20; 4096 values at K = 2, 4, 8 and 20 (--precision 1060, the
+# largest K of the value-a-thread design) and at K = 23 and 54 (--precision
+# 1200 and the CRT prime pool's 2862: a value a warp only).  Each in
+# every design it has (a value a thread at K <= 20, a value a warp at
+# K >= 3).
 EXPANSION_SHAPES = ((48 * 32 * 32, 8), (4096, 2), (4096, 4), (4096, 8),
-                    (4096, 20))
+                    (4096, 20), (48 * 32 * 32, 20), (4096, 23), (4096, 54))
+# The shapes whose records are the kernels line's: the value-a-thread
+# design at the full-width operation (phase 8b), the value-a-warp design
+# at K = 23 (phase 8c's --precision 1200).
+EXPANSION_MAIN = {"thread": ((48 * 32 * 32, 8),),
+                  "warp": ((4096, 23),)}
+# The design sweep: device ms of both designs over the batches the
+# solver launches (phase 8's histograms), from which
+# ops/expansion_kernels.py WARP_MAX_VALUES is chosen.
+SWEEP_KS = (4, 8, 20)
+SWEEP_NS = (256, 1024, 4096, 8192, 16384, 32768, 49152)
 
 
 def _random_expansions(rng, n, k, dev):
@@ -564,12 +620,19 @@ def _exp_ops(name, k):
                       + _exp_ops("exp_add", k)) + renorm(k + 1)
 
 
+def _designs(k):
+    from sdpb_tpu_torch.ops import expansion_kernels as ek
+
+    return [d for d, ok in (("thread", k <= ek.THREAD_MAX_WORDS),
+                            ("warp", k >= 3)) if ok]
+
+
 def _expansion_checks(dev, rng, k, n):
-    """The five expansion kernels against their plain versions, bit for
-    bit with NaN in the same places, on n random expansions with special
-    values among them: b value by value (and the first 9 values one
-    launch each), and b's first value broadcast over the batch (read in
-    place, batch stride 0)."""
+    """The five expansion kernels against their plain versions in each
+    design, bit for bit with NaN in the same places, on n random
+    expansions with special values among them: b value by value (and the
+    first 9 values one launch each), and b's first value broadcast over
+    the batch (read in place, batch stride 0)."""
     from sdpb_tpu_torch.mp import core
     from sdpb_tpu_torch.ops import expansion_kernels as ek
 
@@ -587,31 +650,66 @@ def _expansion_checks(dev, rng, k, n):
             ("exp_mul_f64", ek.exp_mul_f64, core.mul_f64_plain, x)):
         width = k if y.dim() == 2 else 1
         for label, yy, nb in (("", y, n), (" b broadcast", y[:1], 1)):
-            got = kern(a, yy)
             want, plain_ms = timed_once(lambda: plain(a, yy))
-            _check_same(f"{name} ({n},{k}){label}", got, want)
-            if nb == n:
-                for i in range(9):
-                    _check_same(f"{name} (1,{k}) value {i}",
-                                kern(a[i:i + 1], yy[i:i + 1]),
-                                want[i:i + 1])
-            ms = cuda_ms(lambda: kern(a, yy), 5)
-            dev_ms = device_ms(lambda: kern(a, yy), 5)
-            nbytes, ops = (2 * n * k + nb * width) * 8, n * _exp_ops(name, k)
-            print(f"{name} ({n},{k}){label}: bit-exact  kernel {ms:.4f} ms "
-                  f"(device {dev_ms:.4f} ms)  plain {plain_ms:.3f} ms  "
-                  f"bound %.5f ms (%s)"
-                  % bound_ms(nbytes, ops, PEAK_F64_PER_S), flush=True)
-            rows.setdefault(name, []).append(dict(
-                shape=[n, k], err=0.0, ms=ms, device_ms=dev_ms,
-                plain_ms=plain_ms, bytes=nbytes, ops=ops,
-                peak=PEAK_F64_PER_S,
-                main=(n, k) == EXPANSION_SHAPES[0] and nb == n))
-        call1 = cuda_ms(lambda: kern(a[:1], y[:1]), 20)
-        dev1 = device_ms(lambda: kern(a[:1], y[:1]), 5)
-        print(f"{name} (1,{k}): bit-exact on values 0..8  kernel "
-              f"{call1:.4f} ms (device {dev1:.4f} ms)", flush=True)
+            for design in _designs(k):
+                key = name + ("_warp" if design == "warp" else "")
+                run = lambda: kern(a, yy, design=design)
+                _check_bits(f"{key} ({n},{k}){label}", run(), want)
+                if nb == n:
+                    for i in range(9):
+                        _check_bits(f"{key} (1,{k}) value {i}",
+                                    kern(a[i:i + 1], yy[i:i + 1],
+                                         design=design), want[i:i + 1])
+                ms = cuda_ms(run, 5)
+                dev_ms = device_ms(run, 5)
+                nbytes = (2 * n * k + nb * width) * 8
+                ops = n * _exp_ops(name, k)
+                bound, by = bound_ms(nbytes, ops, PEAK_F64_PER_S)
+                print(f"{key} ({n},{k}){label}: bit-exact  kernel {ms:.4f} "
+                      f"ms (device {dev_ms:.4f} ms)  plain {plain_ms:.3f} ms"
+                      f"  bound {bound:.5f} ms ({by})  ratio "
+                      f"{dev_ms / bound:.1f}", flush=True)
+                rows.setdefault(key, []).append(dict(
+                    shape=[n, k], err=0.0, ms=ms, device_ms=dev_ms,
+                    plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                    peak=PEAK_F64_PER_S, design=design,
+                    main=(n, k) in EXPANSION_MAIN[design] and nb == n))
     return rows
+
+
+def _design_sweep(dev, rng):
+    """Device ms (a CUDA graph of 5 calls) of both elementwise designs
+    over SWEEP_NS values at SWEEP_KS, each operation on random
+    expansions: where the value-a-warp design stops being faster."""
+    from sdpb_tpu_torch.ops import expansion_kernels as ek
+
+    table = {}
+    for k in SWEEP_KS:
+        a = _random_expansions(rng, max(SWEEP_NS), k, dev)
+        b = _random_expansions(rng, max(SWEEP_NS), k, dev)
+        for name, kern, wide in (("exp_add", ek.exp_add, True),
+                                 ("exp_mul", ek.exp_mul, True),
+                                 ("exp_div", ek.exp_div, True),
+                                 ("exp_add_f64", ek.exp_add_f64, False),
+                                 ("exp_mul_f64", ek.exp_mul_f64, False)):
+            for n in SWEEP_NS:
+                aa = a[:n]
+                bb = b[:n] if wide else b[:n, 0].contiguous()
+                times = {d: device_ms(lambda: kern(aa, bb, design=d), 5)
+                         for d in _designs(k)}
+                table[f"{name} K={k} n={n}"] = times
+    print("design sweep (device ms, thread / warp): " + json.dumps(
+        {key: "%.4f / %.4f" % (t["thread"], t["warp"])
+         for key, t in table.items()}), flush=True)
+    for k in SWEEP_KS:
+        for name in ("exp_add", "exp_mul", "exp_div", "exp_add_f64",
+                     "exp_mul_f64"):
+            warp_wins = [n for n in SWEEP_NS if table[
+                f"{name} K={k} n={n}"]["warp"] < table[
+                f"{name} K={k} n={n}"]["thread"]]
+            print(f"design sweep {name} K={k}: the warp design is faster "
+                  f"at n = {warp_wins} (WARP_MAX_VALUES "
+                  f"{ek.WARP_MAX_VALUES})", flush=True)
 
 
 # The expansion column-loop kernels: Cholesky panels (batch, R, W, K),
@@ -634,6 +732,16 @@ EXP_SOLVE_SHAPES = ((48, 32, 384, 8), (16, 48, 48, 8), (16, 48, 96, 8),
                                            (48, 32, 384, 20),
                                            (16, 48, 96, 20))
 EXP_FULL_WIDTH = {"exp_cholesky_panel": 8, "exp_solve_unblocked": 4}
+# Above K = 20 (every operation on a warp): the 1d SDP's shapes in
+# approx_objective (Cholesky (1, 5, 5), solves (1, 3, 5) and (1, 5, 1))
+# and (2, 32, 32) panels and (2, 32, 32) x 16 solves, at K = 23 and 54;
+# the records of the (2, 32, 32) shapes at K = 23 (phase 8c's --precision
+# 1200) are the kernels line's.
+EXP_WIDE_CHOL_SHAPES = tuple((bb, R, W, k) for k in (23, 54)
+                             for bb, R, W in ((1, 5, 5), (2, 32, 32)))
+EXP_WIDE_SOLVE_SHAPES = tuple((bb, n, m, k) for k in (23, 54)
+                              for bb, n, m in ((1, 3, 5), (1, 5, 1),
+                                               (2, 32, 16)))
 
 
 def _exp_sqrt_ops(k):
@@ -729,8 +837,12 @@ def _panel_checks(dev, rng):
     from sdpb_tpu_torch.ops import expansion_kernels as ek
 
     rows = {}
-    name = "exp_cholesky_panel"
-    for idx, (bb, R, W, k) in enumerate(EXP_CHOL_SHAPES):
+    for idx, (bb, R, W, k) in enumerate(EXP_CHOL_SHAPES +
+                                        EXP_WIDE_CHOL_SHAPES):
+        name = "exp_cholesky_panel" + (
+            "_warp" if k > ek.THREAD_MAX_WORDS else "")
+        main = (idx < EXP_FULL_WIDTH["exp_cholesky_panel"]
+                or (bb, R, W, k) == (2, 32, 32, 23))
         c = _spd_expansions(rng, bb, R, k, dev, cols=W)
         got = ek.exp_cholesky_panel(c)
         want, plain_ms = timed_once(lambda: ek.cholesky_panel_plain(c))
@@ -745,9 +857,9 @@ def _panel_checks(dev, rng):
               f"ratio {ms / bound:.0f}", flush=True)
         rows.setdefault(name, []).append(dict(
             shape=[bb, R, W, k], err=0.0, ms=ms, plain_ms=plain_ms,
-            bytes=nbytes, ops=ops, peak=PEAK_F64_PER_S,
-            main=idx < EXP_FULL_WIDTH[name]))
-    for k in (2, 8):
+            bytes=nbytes, ops=ops, peak=PEAK_F64_PER_S, main=main))
+    name = "exp_cholesky_panel"
+    for k in (2, 8, 23):
         bad = _spd_expansions(rng, 3, 32, k, dev)
         bad[1] = -bad[1]
         bad[2, 9, 9] = -bad[2, 9, 9]
@@ -766,8 +878,12 @@ def _panel_checks(dev, rng):
     print(f"{name}: non-PD input gives NaN and NaN/+-inf words match the "
           f"plain loop", flush=True)
 
-    name = "exp_solve_unblocked"
-    for idx, (bb, n, m, k) in enumerate(EXP_SOLVE_SHAPES):
+    for idx, (bb, n, m, k) in enumerate(EXP_SOLVE_SHAPES +
+                                        EXP_WIDE_SOLVE_SHAPES):
+        name = "exp_solve_unblocked" + (
+            "_warp" if k > ek.THREAD_MAX_WORDS else "")
+        main = (idx < EXP_FULL_WIDTH["exp_solve_unblocked"]
+                or (bb, n, m, k) == (2, 32, 16, 23))
         lfac = ek.exp_cholesky_panel(_spd_expansions(rng, bb, n, k, dev))
         didx = torch.arange(n, device=dev)
         inv_d = core.recip(lfac[:, didx, didx, :]).contiguous()
@@ -784,15 +900,17 @@ def _panel_checks(dev, rng):
             ops = _exp_solve_ops(bb, n, m, k, transpose)
             bound, by = bound_ms(nbytes, ops, PEAK_F64_PER_S)
             print(f"{name} ({bb},{n},{n})x{m} K={k} T={int(transpose)}: "
-                  f"bit-exact  lanes {ek.solve_lanes(bb, n, m)}  kernel "
+                  f"bit-exact  lanes "
+                  f"{ek.solve_lanes(bb, n, m) if k <= 20 else 32}  kernel "
                   f"{ms:.3f} ms  plain {plain_ms:.1f} ms  bound "
                   f"{bound:.5f} ms ({by})  ratio {ms / bound:.0f}",
                   flush=True)
             rows.setdefault(name, []).append(dict(
                 shape=[bb, n, m, k, int(transpose)], err=0.0, ms=ms,
                 plain_ms=plain_ms, bytes=nbytes, ops=ops,
-                peak=PEAK_F64_PER_S, main=idx < EXP_FULL_WIDTH[name]))
-    for k in (2, 8):
+                peak=PEAK_F64_PER_S, main=main))
+    name = "exp_solve_unblocked"
+    for k in (2, 8, 23):
         lfac = ek.exp_cholesky_panel(_spd_expansions(rng, 2, 32, k, dev))
         didx = torch.arange(32, device=dev)
         inv_d = core.recip(lfac[:, didx, didx, :]).contiguous()
@@ -1007,7 +1125,10 @@ PORT_KERNELS = (
     ("solve_unblocked_batched", r"\(anonymous namespace\)::solve_warp_kernel<"),
     ("limb_elementwise",
      r"\(anonymous namespace\)::elementwise_warp_kernel<"),
-    ("expansion_elementwise", r"\(anonymous namespace\)::expansion_kernel<"),
+    ("expansion_elementwise",
+     r"\(anonymous namespace\)::exp_thread_kernel<"),
+    ("expansion_elementwise_warp",
+     r"\(anonymous namespace\)::exp_warp_kernel<"),
     ("exp_cholesky_panel", r"\(anonymous namespace\)::exp_chol_kernel<"),
     ("exp_solve_unblocked", r"\(anonymous namespace\)::exp_solve_kernel<"),
 )
@@ -1289,7 +1410,10 @@ def _rel(a, b):
 
 
 def _require_launches(label, launches, names):
-    missing = [n for n in names if launches.get(n, 0) <= 0]
+    """Each kernel of ``names`` launched, an elementwise operation in
+    either design (``exp_mul`` or ``exp_mul_warp``)."""
+    missing = [n for n in names if launches.get(n, 0) +
+               launches.get(n + "_warp", 0) <= 0]
     if missing:
         raise AssertionError(f"{label} did not launch {missing}: {launches}")
 
@@ -1309,7 +1433,10 @@ class _LaunchCallers:
 
         def status(name, err):
             f = sys._getframe(1)
-            while f.f_code.co_filename in skip:
+            # _BatchHistogram's wrapper of ek._launch is no caller either
+            while f.f_code.co_filename in skip or (
+                    f.f_code.co_filename == __file__
+                    and f.f_code.co_name == "launch"):
                 f = f.f_back
             key = f"{Path(f.f_code.co_filename).stem}.{f.f_code.co_name}"
             per = self.counts.setdefault(key, {})
@@ -1328,6 +1455,36 @@ class _LaunchCallers:
         """{caller: {kernel: launches}}, the callers by launches."""
         return dict(sorted(self.counts.items(),
                            key=lambda kv: -sum(kv[1].values())))
+
+
+class _BatchHistogram:
+    """The elementwise expansion launches by operation, values a launch
+    (n) and design: {op: {n: {design: launches}}}."""
+
+    def __enter__(self):
+        from sdpb_tpu_torch.ops import expansion_kernels as ek
+
+        self.counts = {}
+        self._inner = inner = ek._launch
+
+        def launch(name, a, b, batch, k, b_width, design):
+            n = math.prod(batch)
+            d = design or ek.elementwise_design(n, k)
+            per = self.counts.setdefault(name, {}).setdefault(n, {})
+            per[d] = per.get(d, 0) + 1
+            return inner(name, a, b, batch, k, b_width, design)
+
+        ek._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        from sdpb_tpu_torch.ops import expansion_kernels as ek
+
+        ek._launch = self._inner
+
+    def report(self):
+        return {op: dict(sorted(per.items()))
+                for op, per in sorted(self.counts.items())}
 
 
 def _check_exp_trajectory(records, ref):
@@ -1453,16 +1610,20 @@ def _expansion_full(dev, limb_first, limb_direction):
     timers = Timers()
     ek.reset_launches()
     t0 = time.time()
-    with _FirstDirection() as direction, _LaunchCallers() as callers:
+    with _FirstDirection() as direction, _LaunchCallers() as callers, \
+            _BatchHistogram() as hist:
         result = driver.solve(problem, params, state=state, timers=timers)
         torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = dict(ek.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     _require_launches("expansion full width", launches, EXP_PATH_KERNELS)
-    elementwise = sum(launches[n] for n in EXP_ELEMENTWISE)
+    elementwise = sum(launches[n] + launches[n + "_warp"]
+                      for n in EXP_ELEMENTWISE)
     print(f"(b) expansion launches by caller: {json.dumps(callers.report())}",
           flush=True)
+    print(f"(b) elementwise launches by n and design: "
+          f"{json.dumps(hist.report())}", flush=True)
     if elementwise >= EXP_ELEMENTWISE_MAX:
         raise AssertionError(f"expansion full width: {elementwise} "
                              f"elementwise expansion launches an iteration "
@@ -1525,23 +1686,13 @@ def _run_json(fn, argv):
     return json.loads(buf.getvalue())
 
 
-def _expansion_approx(dev, out_root: Path, sol_dir: Path):
-    """(c) approx_objective's CLI on the card (its default device) on
-    the 1d SDP, (a)'s solution and a nearby SDP (the quickstart PMP
-    with one coefficient moved, compiled by the port's pmp2sdp), against
-    the same CLI on the CPU: the linear term to 1e-60 relative (the
-    same operations on the same words), the quadratic term and the
-    objective to 1e-30 (the rebuilt Schur complement's condition
-    estimate, ~4e59 at the solution, amplifies last-bit differences of
-    the pivots' rsqrt seeds between the card and the CPU)."""
-    from sdpb_tpu_torch.apps import approx_objective, pmp2sdp
+def _perturbed_sdp(work: Path) -> Path:
+    """The quickstart PMP with one coefficient moved
+    (examples/quickstart.py:33-44 with 1/12 moved to 0.0834), compiled
+    by the port's pmp2sdp into work/sdp_new."""
+    from sdpb_tpu_torch.apps import pmp2sdp
     from sdpb_tpu_torch.io import pmp_writer
-    from sdpb_tpu_torch.ops import expansion_kernels as ek
 
-    work = out_root / "exp_approx"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    # examples/quickstart.py:33-44 with 1/12 moved to 0.0834
     pmp_writer.write_pmp_json(
         work / "pmp.json", objective=[0, -1], normalization=[1, 0],
         matrices=[pmp_writer.PositiveMatrixWithPrefactor(
@@ -1551,35 +1702,160 @@ def _expansion_approx(dev, out_root: Path, sol_dir: Path):
     if pmp2sdp.main(["-p", "768", "-i", str(work / "pmp.json"), "-o",
                      str(work / "sdp_new"), "-v", "0"]) != 0:
         raise AssertionError("pmp2sdp failed on the perturbed PMP")
-    argv = ["--sdp", str(REPO / "sdpb_tpu_torch" / "data" /
+    return work / "sdp_new"
+
+
+def _approx_argv(sol_dir: Path, new_sdp: Path, precision: int):
+    return ["--sdp", str(REPO / "sdpb_tpu_torch" / "data" /
                          "quickstart_1d_sdp"),
-            "--precision", "212", "--newSdp", str(work / "sdp_new"),
+            "--precision", str(precision), "--newSdp", str(new_sdp),
             "--solutionDir", str(sol_dir), "-v", "0"]
-    ek.reset_launches()
-    t0 = time.time()
-    card = _run_json(approx_objective.main, argv)
-    seconds = time.time() - t0
-    launches = dict(ek.LAUNCHES)
-    _require_launches("approx_objective", launches,
-                      ("exp_add", "exp_mul", "exp_div", "exp_cholesky_panel",
-                       "exp_solve_unblocked"))
-    cpu = _run_json(lambda a: approx_objective.main(a, device="cpu"), argv)
+
+
+# approx_objective above K = 20 (phase 8c): --precision 1200 (K = 23) and
+# 2800 (K = 53), each against the same CLI on the CPU, which runs in a
+# process of its own from phase 3 on (~20 s and ~100 s there).
+WIDE_PRECISIONS = (1200, 2800)
+
+
+def start_cpu_approx(out_root: Path):
+    """The CPU side of phase 8c's runs above K = 20, started early: the
+    1d SDP's solution as sdpb_tpu's recorded expansion run left it
+    (data/reference_trajectories.json), the perturbed SDP, and one
+    approx_objective CLI process on the CPU per WIDE_PRECISIONS (one
+    torch thread each).  Returns (argv per precision, processes)."""
+    from sdpb_tpu_torch.io import output as out_io
+
+    work = out_root / "exp_approx_wide"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "sol").mkdir(parents=True)
+    sol = json.loads((REPO / "sdpb_tpu_torch" / "data" /
+                      "reference_trajectories.json").read_text())[
+        "quickstart_1d_expansion"]["solution"]
+    f = lambda v: np.asarray(v, dtype=np.float64)
+    out_io.write_vector(work / "sol" / "y.txt", f(sol["y"]))
+    for j, blk in enumerate(sol["blocks"]):
+        out_io.write_vector(work / "sol" / f"x_{j}.txt", f(blk["x"]))
+        for p in range(2):
+            if f(blk["X"][p]).size:
+                out_io.write_matrix(work / "sol" / f"X_matrix_{2 * j + p}.txt",
+                                    f(blk["X"][p]))
+                out_io.write_matrix(work / "sol" / f"Y_matrix_{2 * j + p}.txt",
+                                    f(blk["Y"][p]))
+    new_sdp = _perturbed_sdp(work)
+    env = _port_env()
+    env.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    code = ("import sys, torch; torch.set_num_threads(1); "
+            "from sdpb_tpu_torch.apps import approx_objective as a; "
+            "sys.exit(a.main(sys.argv[1:], device='cpu'))")
+    argvs, procs = {}, {}
+    for prec in WIDE_PRECISIONS:
+        argvs[prec] = _approx_argv(work / "sol", new_sdp, prec)
+        procs[prec] = subprocess.Popen(
+            [sys.executable, "-c", code, *argvs[prec]], cwd=str(REPO),
+            env=env, stdout=open(work / f"cpu_{prec}.json", "w"),
+            stderr=open(work / f"cpu_{prec}.err", "w"))
+    return argvs, procs
+
+
+def _compare_approx(label, card, cpu):
+    """The card's approx_objective output against the CPU's: the linear
+    term to 1e-60 relative (the same operations on the same words), the
+    quadratic term and the objective to 1e-30 (the rebuilt Schur
+    complement's condition estimate, ~4e59 at the solution, amplifies
+    last-bit differences of the pivots' rsqrt seeds between the card
+    and the CPU)."""
     worst = {}
     for key, tol in (("d_objective", 1e-60), ("dd_objective", 1e-30),
                      ("objective", 1e-30)):
         r = _rel(card[0][key], cpu[0][key])
         worst[key] = r
         if r > tol:
-            raise AssertionError(f"approx_objective {key} on the card "
+            raise AssertionError(f"{label} {key} on the card "
                                  f"{card[0][key]} vs the CPU "
                                  f"{cpu[0][key]}")
     if not _mpf400(card[0]["dd_objective"]) != 0:
-        raise AssertionError("approx_objective: zero quadratic term")
+        raise AssertionError(f"{label}: zero quadratic term")
+    return worst
+
+
+def _expansion_approx(dev, out_root: Path, sol_dir: Path, cpu_jobs):
+    """(c) approx_objective's CLI on the card (its default device) on
+    the 1d SDP and a nearby SDP (_perturbed_sdp) against the same CLI on
+    the CPU (_compare_approx): at --precision 212 (K = 4) with (a)'s
+    solution, then at WIDE_PRECISIONS (K = 23 and 53: every operation a
+    value a warp) with the recorded solution (start_cpu_approx); and
+    --precision 3000 exiting 2 at startup on the card, naming the
+    prime pool's limit."""
+    import contextlib
+    import io
+
+    from sdpb_tpu_torch.apps import approx_objective
+    from sdpb_tpu_torch.ops import expansion_kernels as ek
+    from sdpb_tpu_torch.solver.params import SolverParams
+
+    work = out_root / "exp_approx"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    argv = _approx_argv(sol_dir, _perturbed_sdp(work), 212)
+    ek.reset_launches()
+    t0 = time.time()
+    card = _run_json(approx_objective.main, argv)
+    seconds = time.time() - t0
+    paths = {"exp_approx_objective": dict(ek.LAUNCHES)}
+    _require_launches("approx_objective", paths["exp_approx_objective"],
+                      ("exp_add", "exp_mul", "exp_div", "exp_cholesky_panel",
+                       "exp_solve_unblocked"))
+    cpu = _run_json(lambda a: approx_objective.main(a, device="cpu"), argv)
+    worst = _compare_approx("approx_objective", card, cpu)
     print(f"(c) approx_objective on the card in {seconds:.2f} s: objective "
           f"{card[0]['objective'][:40]} d {card[0]['d_objective'][:24]} dd "
           f"{card[0]['dd_objective'][:24]}; vs the CPU, worst relative "
-          f"{json.dumps(worst)}; launches {launches}", flush=True)
-    return launches
+          f"{json.dumps(worst)}; launches {paths['exp_approx_objective']}",
+          flush=True)
+    argvs, procs = cpu_jobs
+    for prec in WIDE_PRECISIONS:
+        k = SolverParams(precision=prec, word_dtype="float64").n_words
+        ek.reset_launches()
+        t0 = time.time()
+        card = _run_json(approx_objective.main, argvs[prec])
+        seconds = time.time() - t0
+        key = f"exp_approx_objective_{prec}"
+        paths[key] = dict(ek.LAUNCHES)
+        _require_launches(f"approx_objective --precision {prec}",
+                          paths[key],
+                          ("exp_add_warp", "exp_mul_warp", "exp_div_warp",
+                           "exp_cholesky_panel_warp",
+                           "exp_solve_unblocked_warp"))
+        t1 = time.time()
+        rc = procs[prec].wait(timeout=900)
+        waited = time.time() - t1
+        out_file = out_root / "exp_approx_wide" / f"cpu_{prec}.json"
+        if rc != 0:
+            raise AssertionError(
+                f"approx_objective --precision {prec} on the CPU exited "
+                f"{rc}: {out_file.with_suffix('.err').read_text()[-2000:]}")
+        cpu = json.loads(out_file.read_text())
+        worst = _compare_approx(f"approx_objective --precision {prec}",
+                                card, cpu)
+        print(f"(c) approx_objective --precision {prec} (K = {k}) on the "
+              f"card in {seconds:.2f} s (the CPU process waited for "
+              f"{waited:.1f} s more): objective {card[0]['objective'][:40]}"
+              f" dd {card[0]['dd_objective'][:24]}; vs the CPU, worst "
+              f"relative {json.dumps(worst)}; launches {paths[key]}",
+              flush=True)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err), \
+            contextlib.redirect_stdout(io.StringIO()):
+        rc = approx_objective.main(_approx_argv(sol_dir, work / "sdp_new",
+                                                3000))
+    if rc != 2 or "prime pool" not in err.getvalue() or \
+            "largest precision it takes is" not in err.getvalue():
+        raise AssertionError(f"approx_objective --precision 3000 on the "
+                             f"card exited {rc}: {err.getvalue()[-2000:]}")
+    print(f"(c) approx_objective --precision 3000 on the card: exit 2, "
+          f"{err.getvalue().strip()}", flush=True)
+    return paths
 
 
 def _expansion_k20(dev):
@@ -1602,11 +1878,14 @@ def _expansion_k20(dev):
     problem, state = synthetic.build_problem(params, device=dev)
     ek.reset_launches()
     t0 = time.time()
-    result = driver.solve(problem, params, state=state)
-    torch.cuda.synchronize()
+    with _BatchHistogram() as hist:
+        result = driver.solve(problem, params, state=state)
+        torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = dict(ek.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    print(f"(d) elementwise launches by n and design: "
+          f"{json.dumps(hist.report())}", flush=True)
     _require_launches("expansion K = 20", launches, EXP_PATH_KERNELS)
     if len(result.iterations) != 1:
         raise AssertionError(f"expansion K = 20 ran "
@@ -1625,15 +1904,14 @@ def _expansion_k20(dev):
     return launches
 
 
-def phase_expansion(dev, out_root: Path, limb_full):
+def phase_expansion(dev, out_root: Path, limb_full, cpu_jobs):
     """Phase 8: the expansion format on the card, paths (a)-(d)."""
     t = time.time()
     paths = {}
     paths["exp_1d"], sol_dir, _ = _expansion_1d(dev, out_root)
     paths["exp_full_width"], mem = _expansion_full(
         dev, limb_full["first"], limb_full["direction"])
-    paths["exp_approx_objective"] = _expansion_approx(dev, out_root,
-                                                      sol_dir)
+    paths.update(_expansion_approx(dev, out_root, sol_dir, cpu_jobs))
     paths["exp_full_width_k20"] = _expansion_k20(dev)
     phase("8 expansion format", t)
     return paths, mem
@@ -1651,9 +1929,10 @@ def check_memory_estimates(cells):
 
 
 def kernel_json(rows, paths):
-    """One record per kernel: its largest full-width shape's times and
-    bound, ``launches`` from its format's full-width iteration (phase 5
-    for the limb kernels, phase 8b for the expansion kernels), and each
+    """One record per kernel and design: its main shape's times and
+    bound, ``launches`` from its path (phase 5's full-width iteration for
+    the limb kernels; for the expansion kernels phase 8b's, and for the
+    value-a-warp designs phase 8c's --precision 1200 run), and each
     path's launches beside them."""
     meta = {
         "cholesky_unblocked_batched": "sdpb_tpu/ops/limb_kernels.py:251",
@@ -1679,21 +1958,27 @@ def kernel_json(rows, paths):
                    "sdpb_tpu_torch/csrc/expansion_solve.cu"}
     out = []
     for name, recs in rows.items():
+        base = name.removesuffix("_warp")
         rec = max((r for r in recs if r["main"]), key=lambda r: r["ops"])
         bound, bound_by = bound_ms(rec["bytes"], rec["ops"],
                                    rec.get("peak", PEAK_F32_PER_S))
-        launches = paths["exp_full_width" if name in EXP_KERNELS
-                         else "full_width"]
+        if base not in EXP_KERNELS:
+            path = "full_width"
+        elif name.endswith("_warp"):
+            path = f"exp_approx_objective_{WIDE_PRECISIONS[0]}"
+        else:
+            path = "exp_full_width"
         out.append({
             "name": name, "route": "cuda",
             "source": sources.get(
-                name, "sdpb_tpu_torch/csrc/expansion_elementwise.cu"),
-            "replaces": meta[name], "launches": launches.get(name, 0),
+                base, "sdpb_tpu_torch/csrc/expansion_elementwise.cu"),
+            "replaces": meta[base], "launches": paths[path].get(name, 0),
             "max_abs_err": max(r["err"] for r in recs),
             "ms": rec["ms"], "device_ms": rec.get("device_ms"),
             "plain_ms": rec["plain_ms"],
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None, "shape": rec["shape"],
+            "design": rec.get("design"), "launches_path": path,
             "launches_by_path": {p: n.get(name, 0)
                                  for p, n in paths.items()}})
     return {"kernels": out}
@@ -1715,12 +2000,20 @@ def main(argv=None) -> int:
     out_root.mkdir(parents=True, exist_ok=True)
     card = phase_env()
     phase_build()
-    rows = phase_kernels(dev)
-    paths = {"1d": phase_1d(dev, out_root)}
-    paths["full_width"], full_mem = phase_full(dev)
-    paths["cli_2048"] = phase_frontend(dev, out_root)
-    paths["n_1024"], large_mem = phase_large(dev)
-    exp_paths, exp_mem = phase_expansion(dev, out_root, full_mem)
+    cpu_jobs = start_cpu_approx(out_root)
+    try:
+        rows = phase_kernels(dev)
+        paths = {"1d": phase_1d(dev, out_root)}
+        paths["full_width"], full_mem = phase_full(dev)
+        paths["cli_2048"] = phase_frontend(dev, out_root)
+        paths["n_1024"], large_mem = phase_large(dev)
+        exp_paths, exp_mem = phase_expansion(dev, out_root, full_mem,
+                                             cpu_jobs)
+    finally:
+        for proc in cpu_jobs[1].values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     paths.update(exp_paths)
     check_memory_estimates([full_mem, large_mem, exp_mem])
     print(card, flush=True)

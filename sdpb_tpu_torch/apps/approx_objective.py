@@ -20,8 +20,10 @@ The port of the JAX package's ``apps/approx_objective.py`` (reference
 
 It runs on the CUDA device unless the caller passes ``device="cpu"``,
 and never falls back: the expansion arithmetic launches the kernels of
-``ops/expansion_kernels.py`` on the card (K <= 20 words, checked at
-startup) and runs their plain versions on the CPU.
+``ops/expansion_kernels.py`` on the card (every K up to the CRT prime
+pool's limit, 54 words: --precision 2862) and runs their plain versions
+on the CPU.  A precision above what the prime pool holds for the SDP
+exits 2 at startup, naming the limit, on either device.
 """
 
 from __future__ import annotations
@@ -243,10 +245,6 @@ def main(argv=None, device=None) -> int:
     device = resolve_device(device)
     params = SolverParams(precision=args.precision, word_dtype="float64")
     k = params.n_words
-    if device.type == "cuda":
-        from ..ops import expansion_kernels
-
-        expansion_kernels.check_words("approx_objective", k)
     sdp_path = Path(args.sdp)
     solution_dir = Path(args.solutionDir) if args.solutionDir else \
         sdp_path.parent / (sdp_path.name + "_out")
@@ -261,6 +259,11 @@ def main(argv=None, device=None) -> int:
               f"holds for this SDP; the largest precision it takes is "
               f"{limit}", file=sys.stderr)
         return 2
+    if device.type == "cuda":
+        from ..ops import expansion_kernels
+
+        # the kernels hold every K the prime pool does: a safeguard
+        expansion_kernels.check_words("approx_objective", k)
     problem = problem_from_raw(raw, device, torch.float64, k)
     x, y = read_solution_vectors(solution_dir, problem, k)
 

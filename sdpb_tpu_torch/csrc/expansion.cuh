@@ -1,5 +1,8 @@
-// Float64 word expansions, one value per thread: the per-value routines
-// of csrc/expansion_elementwise.cu.
+// Float64 word expansions, one value per thread: the primitives of every
+// expansion kernel (two_sum, two_prod, merge_words, mul_terms, key_less)
+// and the reference per-value routines that the register and warp
+// operations (csrc/expansion_regs.cuh, csrc/expansion_warp.cuh) are held
+// to bit for bit in tests/test_torch_expansion_warp.py.
 //
 // An expansion of K words holds a value as the exact sum of K float64
 // words in decreasing order of magnitude.  These are the algorithms of
@@ -28,9 +31,13 @@
 
 namespace expn {
 
-// Largest K a build takes (ops/expansion_kernels.py MAX_WORDS):
-// --precision 1060.
-constexpr int kMaxWords = 20;
+// Largest K a build takes (ops/expansion_kernels.py MAX_WORDS): the CRT
+// prime pool's limit, --precision 2862.  The value-a-thread operations
+// (this header's, expansion_regs.cuh's) hold K <= kThreadMaxWords
+// (THREAD_MAX_WORDS, --precision 1060) in registers; above that every
+// kernel runs its operations a value a warp (expansion_warp.cuh).
+constexpr int kMaxWords = 54;
+constexpr int kThreadMaxWords = 20;
 
 // Words of the bitonic merge in add: the smallest power of two >= 2K.
 template <int K>
@@ -280,8 +287,8 @@ EXP_HD void div(const double* a, const double* b, double* out) {
 }
 
 // One value of operation OP: 0 add, 1 mul, 2 div (b an expansion of K
-// words); 3 add_f64, 4 mul_f64 (b one float64 word).  The body of the
-// CUDA kernel's loop, and of the host build's in the tests.
+// words); 3 add_f64, 4 mul_f64 (b one float64 word).  The host build's
+// loop in tests/test_torch_expansion.py.
 template <int K, int OP>
 EXP_HD void apply(const double* a, const double* b, double* out) {
   double x[K], o[K];

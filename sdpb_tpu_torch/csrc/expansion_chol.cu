@@ -83,6 +83,30 @@ __global__ void __launch_bounds__(kThreads, 1)
                             sh, threadIdx.x, kThreads);
 }
 
+// Above K = kThreadMaxWords (expansion_panels.cuh
+// chol_panel_block_warps): the same grid and rows, the update threads'
+// work on the three update warps, every operation a value a warp.
+template <int K>
+__global__ void __launch_bounds__(kThreads, 1)
+    exp_chol_warps_kernel(const double* __restrict__ in,
+                          double* __restrict__ out,
+                          double* __restrict__ scratch, int R, int W,
+                          int tiles, int rt) {
+  extern __shared__ double sh[];
+  const int b = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const long panel = (long)R * W * K;
+  const double* in_b = in + b * panel;
+  double* out_b = out + b * panel;
+  const int row0 = W + tile * rt;
+  const int nt = min(rt, R - row0);
+  double* diag = tile == 0 ? out_b
+                           : scratch + ((long)b * (tiles - 1) + tile - 1) *
+                                           W * W * K;
+  expn::chol_panel_block_warps<K>(in_b, in_b + (long)row0 * W * K, diag,
+                                  out_b + (long)row0 * W * K, W,
+                                  nt > 0 ? nt : 0, sh, threadIdx.x, kThreads);
+}
+
 }  // namespace
 
 #ifndef EXP_K
@@ -100,6 +124,17 @@ int EXP_PASTE(expansion_chol_k, EXP_K)(const double* in, double* out,
       W + (R > W ? rt : 0) > kThreads - 32 ||
       (tiles > 1 && scratch == nullptr) || EXP_K > expn::kMaxWords)
     return (int)cudaErrorInvalidValue;
+#if EXP_K > 20
+  const size_t smem = (size_t)expn::chol_warps_smem_words<EXP_K>(
+                          W + (R > W ? rt : 0), kThreads) * sizeof(double);
+  const cudaError_t err = cudaFuncSetAttribute(
+      exp_chol_warps_kernel<EXP_K>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  exp_chol_warps_kernel<EXP_K><<<bb * tiles, kThreads, smem,
+                                 (cudaStream_t)stream>>>(in, out, scratch, R,
+                                                         W, tiles, rt);
+#else
   const size_t smem = (size_t)expn::chol_smem_words<EXP_K>(
                           W + (R > W ? rt : 0), kThreads) * sizeof(double);
   if (smem > 48 * 1024) {
@@ -111,6 +146,7 @@ int EXP_PASTE(expansion_chol_k, EXP_K)(const double* in, double* out,
   exp_chol_kernel<EXP_K><<<bb * tiles, kThreads, smem,
                            (cudaStream_t)stream>>>(in, out, scratch, R, W,
                                                    tiles, rt);
+#endif
   return (int)cudaGetLastError();
 }
 

@@ -211,9 +211,16 @@ EXP_BLOCK void pivot_program(double* slot, int q0, int q1, double* wsm,
           os[t] = half ? o[t] * 0.5 : o[t];
         });
       } else {
-        if (lane < K) {
-          ws.x[lane] = neg_x ? -xs[lane] : xs[lane];
-          ws.y[lane] = neg_y ? -ys[lane] : ys[lane];
+        if constexpr (K <= 32) {
+          if (lane < K) {
+            ws.x[lane] = neg_x ? -xs[lane] : xs[lane];
+            ws.y[lane] = neg_y ? -ys[lane] : ys[lane];
+          }
+        } else {
+          for (int t = lane; t < K; t += 32) {
+            ws.x[t] = neg_x ? -xs[t] : xs[t];
+            ws.y[t] = neg_y ? -ys[t] : ys[t];
+          }
         }
         EXP_SYNC_WARP();
         warp::Res r;
@@ -224,10 +231,18 @@ EXP_BLOCK void pivot_program(double* slot, int q0, int q1, double* wsm,
           default: r = {rsqrt_seed(ws.x[0]), 0};
         }
         EXP_SYNC_WARP();  // the emitted words are out, the operands read
-        if (lane < K) {
-          const double w =
-              lane < r.j ? ws.emit[lane] : (lane == r.j ? r.e : 0.0);
-          os[lane] = half ? w * 0.5 : w;
+        if constexpr (K <= 32) {
+          if (lane < K) {
+            const double w =
+                lane < r.j ? ws.emit[lane] : (lane == r.j ? r.e : 0.0);
+            os[lane] = half ? w * 0.5 : w;
+          }
+        } else {
+          // K > 32: two words a lane
+          for (int t = lane; t < K; t += 32) {
+            const double w = warp::res_word<K>(ws, r, t);
+            os[t] = half ? w * 0.5 : w;
+          }
         }
       }
       EXP_SYNC_WARP();
@@ -535,6 +550,243 @@ EXP_BLOCK void solve_block(const double* L, const double* B,
     if (l0 == i) regs::store_strided<K>(xi, xs, nthreads);
     if (l1 == i) regs::store_strided<K>(xi, xs + (long)K * nthreads, nthreads);
     if (active && p == 0) regs::store<K>(xi, X + ((long)i * m + q) * K);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Above K = kThreadMaxWords: every operation a value a warp
+// ---------------------------------------------------------------------------
+
+// A thread's operands alone at K = 54 are 216 registers, so above
+// K = 20 the column loops run every operation on a warp
+// (expansion_warp.cuh), one after another; these paths are held to the
+// plain loops' bits, not tuned.
+
+// Warp operation on the operands ws.x, ws.y (already written and
+// synchronized): its result's words to ``dst`` (K words; may be an
+// operand's source), negated where ``neg``.
+template <int K, class Op>
+EXP_BLOCK void warp_op_to(const warp::Scratch<K>& ws, Op op, double* dst,
+                          bool neg, int lane) {
+  const warp::Res r = op();
+  EXP_SYNC_WARP();
+  for (int t = lane; t < K; t += 32) {
+    const double w = warp::res_word<K>(ws, r, t);
+    dst[t] = neg ? -w : w;
+  }
+  EXP_SYNC_WARP();
+}
+
+// ws.x <- x, ws.y <- y (y == nullptr: +0 words), then a barrier.
+template <int K>
+EXP_BLOCK void warp_operands(const warp::Scratch<K>& ws, const double* x,
+                             const double* y, bool neg_y, int lane) {
+  for (int t = lane; t < K; t += 32) {
+    ws.x[t] = x[t];
+    ws.y[t] = y == nullptr ? 0.0 : (neg_y ? -y[t] : y[t]);
+  }
+  EXP_SYNC_WARP();
+}
+
+// Shared memory of a Cholesky block above kThreadMaxWords, in doubles:
+// each warp's scratch, then the rows' multipliers and final words of the
+// step's column, the pivots and the pivot warp's slots.
+template <int K>
+EXP_HD constexpr long chol_warps_smem_words(int rows, int nthreads) {
+  return (long)(nthreads / 32) * warp::scratch_words<K>() +
+         (long)K * (2 * rows + 4 + kPivotSlots);
+}
+
+// chol_panel_block above kThreadMaxWords: the same schedule (the pivot
+// warp a step ahead, one block barrier a step, the update warps' own
+// barrier between the multipliers and the update), with the update
+// threads' work on the update warps: warp w takes rows w, w + nw, ...
+// (each row's multiplier, its zero additions and its final word, kept in
+// shared memory and stored a step late) and every nw-th entry of the
+// update, each entry's product and addition a warp operation.
+template <int K>
+EXP_BLOCK void chol_panel_block_warps(const double* in_diag,
+                                      const double* in_tile, double* diag,
+                                      double* tile, int W, int nt, double* sh,
+                                      int tid, int nthreads) {
+  const int rows = W + nt, lane = tid & 31;
+  const warp::Scratch<K> ws(sh + (long)(tid >> 5) * warp::scratch_words<K>());
+  double* mult = sh + (long)(nthreads / 32) * warp::scratch_words<K>();
+  double* fin = mult + (long)rows * K;
+  double* piv = fin + (long)rows * K;  // [t & 1]: d, then 1/d
+  double* slot = piv + 4 * K;
+  for (long w = tid; w < (long)rows * W; w += nthreads) {
+    const int r = (int)(w / W), c = (int)(w % W);
+    const double* src =
+        r < W ? in_diag + w * K : in_tile + (w - (long)W * W) * K;
+    double* dst = panel_entry<K>(diag, tile, W, r, c);
+    for (int i = 0; i < K; ++i) dst[i] = src[i];
+  }
+  EXP_SYNC();
+  if (tid < 32) {
+    // the pivot warp, as chol_panel_block's
+    const regs::Emit em{nullptr, 0};
+    double* wsm = sh;
+    warp::init_codes<K>(ws, tid);
+    for (int i = 0; i < K; ++i) slot[kA * K + i] = diag[i];
+    pivot_program<K>(slot, 3, pivot_ops<K>(), wsm, em, tid);
+    for (int i = 0; i < K; ++i) {
+      piv[i] = slot[kS * K + i];
+      piv[K + i] = slot[kY * K + i];
+    }
+#pragma unroll 1
+    for (int t = 0; t < W; ++t) {
+      EXP_SYNC();
+      if (t + 1 < W) {
+        const double* x1 = diag + ((long)(t + 1) * W + t) * K;
+        for (int i = 0; i < K; ++i) {
+          slot[kX1 * K + i] = x1[i];
+          slot[kX2 * K + i] = x1[K + i];
+        }
+        pivot_program<K>(slot, 0, pivot_ops<K>(), wsm, em, tid);
+        double* nxt = piv + ((t + 1) & 1) * 2 * K;
+        for (int i = 0; i < K; ++i) {
+          nxt[i] = slot[kS * K + i];
+          nxt[K + i] = slot[kY * K + i];
+        }
+      }
+    }
+    return;
+  }
+  // the update warps
+  const int uw = (tid >> 5) - 1, nw = nthreads / 32 - 1;
+#pragma unroll 1
+  for (int t = 0; t < W; ++t) {
+    EXP_SYNC();
+    const double* d = piv + (t & 1) * 2 * K;
+#pragma unroll 1
+    for (int u = uw; u < rows; u += nw) {
+      double* f = fin + (long)u * K;
+      if (t >= 1) {
+        double* e = panel_entry<K>(diag, tile, W, u, t - 1);
+        for (int i = lane; i < K; i += 32) e[i] = f[i];
+      }
+      EXP_SYNC_WARP();
+      if (u < t) {
+        for (int i = lane; i < K; i += 32) f[i] = 0.0;
+        EXP_SYNC_WARP();
+        continue;
+      }
+      if (u == t) {
+        for (int i = lane; i < K; i += 32) f[i] = d[i];
+        EXP_SYNC_WARP();
+      } else {
+        warp_operands<K>(ws, panel_entry<K>(diag, tile, W, u, t), d + K,
+                         false, lane);
+        warp_op_to<K>(ws, [&] { return warp::mul<K>(ws, lane); }, f, false,
+                      lane);
+      }
+      for (int i = lane; i < K; i += 32) mult[(long)u * K + i] = f[i];
+      // the W - t zero additions, until one leaves the value unchanged
+#pragma unroll 1
+      for (int z = 0; z < W - t; ++z) {
+        warp_operands<K>(ws, f, nullptr, false, lane);
+        const warp::Res r = warp::add<K>(ws, lane);
+        EXP_SYNC_WARP();
+        bool same = true;
+        for (int i = 0; i < K; ++i)
+          same = same && word_bits(warp::res_word<K>(ws, r, i)) ==
+                             word_bits(f[i]);
+        EXP_SYNC_WARP();  // every lane has compared
+        if (same) break;
+        for (int i = lane; i < K; i += 32) f[i] = warp::res_word<K>(ws, r, i);
+        EXP_SYNC_WARP();
+      }
+    }
+    EXP_SYNC_UPDATE(nthreads - 32);
+    const int nc = W - 1 - t;
+#pragma unroll 1
+    for (long w = uw; w < (long)rows * nc; w += nw) {
+      const int r = (int)(w / nc), c = t + 1 + (int)(w % nc);
+      if (r < c || (r == t + 1 && c == t + 1)) continue;
+      double* e = panel_entry<K>(diag, tile, W, r, c);
+      // e <- add(e, -mul(m_r, m_c)): the product's words negated into
+      // ws.y, e into ws.x
+      warp_operands<K>(ws, mult + (long)r * K, mult + (long)c * K, false,
+                       lane);
+      warp_op_to<K>(ws, [&] { return warp::mul<K>(ws, lane); }, ws.y, true,
+                    lane);
+      for (int i = lane; i < K; i += 32) ws.x[i] = e[i];
+      EXP_SYNC_WARP();
+      warp_op_to<K>(ws, [&] { return warp::add<K>(ws, lane); }, e, false,
+                    lane);
+    }
+  }
+  for (int u = uw; u < rows; u += nw) {
+    double* e = panel_entry<K>(diag, tile, W, u, W - 1);
+    for (int i = lane; i < K; i += 32) e[i] = fin[(long)u * K + i];
+  }
+}
+
+// One warp's share of the substitution above kThreadMaxWords: column
+// ``col`` (< m) of X = L^-1 B (or L^-T B), L (n, n), B and X (n, m),
+// inv_d (n), every operation a warp operation on the warp's scratch
+// ``wsm``.  Per row i, in solve_block's order: the n terms mul(l_ik, x_k)
+// (+0 where k is masked, as the plain loop's mul(+0, +0)) into ``tree``
+// (n x K words of the column's own), their sum by mp/core.py sum_'s tree
+// (a[p] + a[p + h], a pair of +0 values skipped, an odd last term
+// carried), then x_i = mul(add(b_i, -sum), inv_d_i) into X, from where
+// the rows below read it.
+template <int K>
+EXP_BLOCK void solve_column_warp(const double* L, const double* B,
+                                 const double* inv_d, double* X,
+                                 double* tree, int n, int m, int col,
+                                 bool transpose, double* wsm, int lane) {
+  const warp::Scratch<K> ws(wsm);
+  auto pos_zero = [&](const double* v) {
+    bool z = true;
+    for (int t = 0; t < K; ++t) z = z && word_bits(v[t]) == 0;
+    return z;
+  };
+#pragma unroll 1
+  for (int s = 0; s < n; ++s) {
+    const int i = transpose ? n - 1 - s : s;
+#pragma unroll 1
+    for (int p = 0; p < n; ++p) {
+      double* v = tree + (long)p * K;
+      if (transpose ? p > i : p < i) {
+        warp_operands<K>(
+            ws, L + (transpose ? (long)p * n + i : (long)i * n + p) * K,
+            X + ((long)p * m + col) * K, false, lane);
+        warp_op_to<K>(ws, [&] { return warp::mul<K>(ws, lane); }, v, false,
+                      lane);
+      } else {
+        for (int t = lane; t < K; t += 32) v[t] = 0.0;
+      }
+    }
+    EXP_SYNC_WARP();
+#pragma unroll 1
+    for (int len = n; len > 1;) {
+      const int h = len / 2, odd = len & 1;
+#pragma unroll 1
+      for (int p = 0; p < h; ++p) {
+        double* v = tree + (long)p * K;
+        const double* w = tree + (long)(p + h) * K;
+        if (pos_zero(v) && pos_zero(w)) continue;
+        warp_operands<K>(ws, v, w, false, lane);
+        warp_op_to<K>(ws, [&] { return warp::add<K>(ws, lane); }, v, false,
+                      lane);
+      }
+      if (odd) {
+        EXP_SYNC_WARP();  // every lane has read the level's pairs
+        for (int t = lane; t < K; t += 32)
+          tree[(long)h * K + t] = tree[(long)2 * h * K + t];
+        EXP_SYNC_WARP();
+      }
+      len = h + odd;
+    }
+    double* xi = X + ((long)i * m + col) * K;
+    warp_operands<K>(ws, B + ((long)i * m + col) * K, tree, true, lane);
+    warp_op_to<K>(ws, [&] { return warp::add<K>(ws, lane); }, xi, false,
+                  lane);
+    warp_operands<K>(ws, xi, inv_d + (long)i * K, false, lane);
+    warp_op_to<K>(ws, [&] { return warp::mul<K>(ws, lane); }, xi, false,
+                  lane);
   }
 }
 

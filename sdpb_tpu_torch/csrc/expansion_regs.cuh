@@ -1,9 +1,11 @@
 // Float64 word expansions in registers: the per-value operations of the
-// column-loop kernels (csrc/expansion_panels.cuh).
+// column-loop kernels (csrc/expansion_panels.cuh) and of the elementwise
+// kernel's value-a-thread design (csrc/expansion_elementwise.cuh), K <=
+// kThreadMaxWords.
 //
-// The same algorithms as csrc/expansion.cuh (add, add_f64, mul), float64
-// operation for float64 operation in the same order, so the results
-// agree bit for bit; what differs is where the words live.  Every loop
+// The same algorithms as csrc/expansion.cuh (add, add_f64, mul, mul_f64,
+// div), float64 operation for float64 operation in the same order, so
+// the results agree bit for bit; what differs is where the words live.  Every loop
 // here runs over a compile-time range (static_for), so every array is
 // indexed by constants and lives in registers, or keeps its words in
 // the thread's scratch in shared memory: no operation touches local
@@ -515,6 +517,70 @@ EXP_HD void mul(const double (&a)[K], const double (&b)[K], const Emit& em,
     mul_unrolled<K>(a, b, em, out);
   } else {
     mul_stream<K>(a, b, em, out);
+  }
+}
+
+// mul_f64 of a and the float64 word x (expansion.cuh mul_f64): the
+// 2K - 1 words [p_0, p_1, e_0, ..., p_{K-1}, e_{K-2}] in registers,
+// then renorm.  Scratch: the K emitted words.
+template <int K>
+EXP_HD void mul_f64(const double (&a)[K], double x, const Emit& em,
+                    double (&out)[K]) {
+  if constexpr (K == 1) {
+    out[0] = a[0] * x;
+  } else {
+    double w[2 * K - 1];
+    double e_prev;
+    two_prod(a[0], x, w[0], e_prev);
+    static_for<1, K>([&](auto I) {
+      constexpr int i = EXP_IDX(I);
+      double p, e;
+      two_prod(a[i], x, p, e);
+      w[2 * i - 1] = p;
+      w[2 * i] = e_prev;
+      e_prev = e;
+    });
+    renorm<K, 2 * K - 1>(w, em, out);
+  }
+}
+
+// Words a div keeps in the thread's scratch (Emit): the K emitted words,
+// then the K + 1 quotient words.
+template <int K>
+EXP_HD constexpr int div_words() {
+  return 2 * K + 1;
+}
+
+// div of a by the K words b (expansion.cuh div), b at b[t * sb] (shared
+// memory: read again each step, so that its words take no registers
+// across the loop): K + 1 steps of r <- add(r, -mul_f64(b, r_0 / b_0)),
+// the quotient words in the scratch after the emitted words, then their
+// renormalization.
+template <int K>
+EXP_HD void div(const double (&a)[K], const double* b, int sb,
+                const Emit& em, double (&out)[K]) {
+  if constexpr (K == 1) {
+    out[0] = a[0] / b[0];
+  } else {
+    double* q = em.p + K * em.stride;
+    double r[K];
+    static_for<0, K>([&](auto I) { r[EXP_IDX(I)] = a[EXP_IDX(I)]; });
+#pragma unroll 1
+    for (int s = 0; s <= K; ++s) {
+      double y[K], t[K], nr[K];
+      load_strided<K>(b, sb, y);
+      const double qi = r[0] / y[0];
+      mul_f64<K>(y, qi, em, t);
+      static_for<0, K>([&](auto I) { t[EXP_IDX(I)] = -t[EXP_IDX(I)]; });
+      add<K>(r, t, em, nr);
+      static_for<0, K>([&](auto I) { r[EXP_IDX(I)] = nr[EXP_IDX(I)]; });
+      q[s * em.stride] = qi;
+    }
+    double m[K + 1];
+    static_for<0, K + 1>([&](auto I) {
+      m[EXP_IDX(I)] = q[EXP_IDX(I) * em.stride];
+    });
+    renorm<K, K + 1>(m, em, out);
   }
 }
 

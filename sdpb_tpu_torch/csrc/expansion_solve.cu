@@ -66,6 +66,29 @@ __global__ void __launch_bounds__(kThreads, 1)
                        G, transpose != 0, sh, threadIdx.x, kThreads);
 }
 
+// Above K = kThreadMaxWords (expansion_panels.cuh solve_column_warp): a
+// warp a right-hand-side column, kThreads / 32 columns a block, every
+// operation a warp operation; ``tree`` (bb, m, n, K) holds each column's
+// terms.
+template <int K>
+__global__ void __launch_bounds__(kThreads)
+    exp_solve_warps_kernel(const double* __restrict__ L,
+                           const double* __restrict__ B,
+                           const double* __restrict__ inv_d, double* X,
+                           double* tree, int n, int m, int tiles,
+                           int transpose) {
+  extern __shared__ double sh[];
+  const int b = blockIdx.x / tiles, tile = blockIdx.x % tiles;
+  const int col = tile * (kThreads / 32) + (threadIdx.x >> 5);
+  if (col >= m) return;
+  const long nm = (long)n * m * K;
+  expn::solve_column_warp<K>(
+      L + (long)b * n * n * K, B + b * nm, inv_d + (long)b * n * K, X + b * nm,
+      tree + ((long)b * m + col) * n * K, n, m, col, transpose != 0,
+      sh + (threadIdx.x >> 5) * expn::warp::scratch_words<K>(),
+      threadIdx.x & 31);
+}
+
 }  // namespace
 
 #ifndef EXP_K
@@ -76,6 +99,30 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 extern "C" {
 
+#if EXP_K > 20
+// tree: (bb, m, n, K) scratch of the column's terms.
+int EXP_PASTE(expansion_solve_warps_k, EXP_K)(const double* L,
+                                              const double* B,
+                                              const double* inv_d, double* X,
+                                              double* tree, int bb, int n,
+                                              int m, int transpose,
+                                              void* stream) {
+  if (bb < 1 || n < 1 || m < 1 || tree == nullptr ||
+      EXP_K > expn::kMaxWords)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(kThreads / 32) *
+                      expn::warp::scratch_words<EXP_K>() * sizeof(double);
+  const cudaError_t err = cudaFuncSetAttribute(
+      exp_solve_warps_kernel<EXP_K>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (m + kThreads / 32 - 1) / (kThreads / 32);
+  exp_solve_warps_kernel<EXP_K><<<bb * tiles, kThreads, smem,
+                                  (cudaStream_t)stream>>>(
+      L, B, inv_d, X, tree, n, m, tiles, transpose);
+  return (int)cudaGetLastError();
+}
+#else
 int EXP_PASTE(expansion_solve_k, EXP_K)(const double* L, const double* B,
                                         const double* inv_d, double* X,
                                         int bb, int n, int m, int G,
@@ -98,5 +145,6 @@ int EXP_PASTE(expansion_solve_k, EXP_K)(const double* L, const double* B,
                                                     tiles, transpose);
   return (int)cudaGetLastError();
 }
+#endif
 
 }  // extern "C"

@@ -2,30 +2,39 @@
 PyTorch versions, and the build and loader.
 
 ``exp_add``, ``exp_mul``, ``exp_div``, ``exp_add_f64`` and
-``exp_mul_f64`` run one expansion operation per launch, one value per
-thread (``csrc/expansion_elementwise.cu`` over ``csrc/expansion.cuh``),
+``exp_mul_f64`` run one expansion operation per launch
+(``csrc/expansion_elementwise.cu`` over ``csrc/expansion_elementwise.cuh``),
 where the JAX package leaves the expansion arithmetic of
-``sdpb_tpu/mp/core.py`` to XLA fusions.  Their plain PyTorch versions
-are ``mp/core.py``'s ``add_plain`` ... ``mul_f64_plain``.
+``sdpb_tpu/mp/core.py`` to XLA fusions, in one of two designs: a value
+a thread, its words in registers (``csrc/expansion_regs.cuh``), for
+batches that fill the card at K <= THREAD_MAX_WORDS; a value a warp
+(``csrc/expansion_warp.cuh``) for smaller batches (at most
+WARP_MAX_VALUES values) and for every batch above THREAD_MAX_WORDS,
+up to MAX_WORDS, the CRT prime pool's limit.  Their plain PyTorch
+versions are ``mp/core.py``'s ``add_plain`` ... ``mul_f64_plain``.
 
 ``exp_cholesky_panel`` and ``exp_solve_unblocked`` run a whole column
 loop of the expansion Cholesky and of the triangular substitution per
 launch (``csrc/expansion_chol.cu``, ``csrc/expansion_solve.cu`` over
 ``csrc/expansion_panels.cuh``: a Cholesky's pivots on a warp of their
-own ahead of the update, ``csrc/expansion_warp.cuh``, the rest a value
-per thread, ``csrc/expansion_regs.cuh``), where the JAX package's
-``fori_loop``s are one XLA program.  Their plain versions, ``cholesky_panel_plain``
-and ``solve_unblocked_plain``, are the loops over the elementwise
-operations.
+own ahead of the update; up to THREAD_MAX_WORDS the rest a value per
+thread, above it every operation on a warp), where the JAX package's
+``fori_loop``s are one XLA program.  Their plain versions,
+``cholesky_panel_plain`` and ``solve_unblocked_plain``, are the loops
+over the elementwise operations.
 
-Each unit is compiled once for every word count K in 1..MAX_WORDS
-(``-DEXP_K``), all with ``nvcc`` at first use and all at once, and
-linked into one shared library (``csrc/build/``, keyed by sources and
-flags) called through ``ctypes``; no PyTorch header is involved.
+Each unit is compiled with ``nvcc`` at first use (``-DEXP_K``): once for
+every K in 1..THREAD_MAX_WORDS, all at once and linked into one shared
+library, and once for each K above that when that K is first used, into
+a library of its own; all under ``csrc/build/``, keyed by sources and
+flags, and called through ``ctypes``; no PyTorch header is involved.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device; it never falls back from one
-to the other.  ``LAUNCHES`` counts kernel launches per wrapper.
+to the other.  ``LAUNCHES`` counts kernel launches per wrapper and
+design (``exp_mul`` a value a thread, ``exp_mul_warp`` a value a warp;
+``exp_cholesky_panel_warp`` and ``exp_solve_unblocked_warp`` the column
+loops above THREAD_MAX_WORDS).
 """
 
 from __future__ import annotations
@@ -44,17 +53,32 @@ from ..mp import core
 from .limb_kernels import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc, _status
 
 SOURCES = ("expansion.cuh", "expansion_regs.cuh", "expansion_warp.cuh",
-           "expansion_panels.cuh",
+           "expansion_panels.cuh", "expansion_elementwise.cuh",
            "expansion_elementwise.cu", "expansion_chol.cu",
            "expansion_solve.cu")
 # Each unit is compiled once per K (-DEXP_K); the elementwise unit's
 # K = 1 object also carries the library's entry points.
 UNITS = ("expansion_elementwise.cu", "expansion_chol.cu",
          "expansion_solve.cu")
-# csrc/expansion.cuh kMaxWords: K = 20 holds --precision 1060.
-MAX_WORDS = 20
-# csrc/expansion_elementwise.cu kThreads: threads a block, one value each.
+# csrc/expansion.cuh kMaxWords: the largest K the kernels take, that of
+# the CRT prime pool's limit (--precision 2862: solver/memory.py
+# max_crt_precision); and kThreadMaxWords, the largest K whose operations
+# run a value a thread, in registers (--precision 1060).
+MAX_WORDS = 54
+THREAD_MAX_WORDS = 20
+# csrc/expansion_elementwise.cu kThreads and kWarps: threads a block of
+# the value-a-thread design, warps a block of the value-a-warp design.
 EXPANSION_THREADS = 128
+EXPANSION_WARPS = 4
+# The elementwise design: a value a warp for batches of at most this
+# many values (and for K > THREAD_MAX_WORDS), a value a thread above
+# (K >= 3; K = 1, 2 a thread always).  Chosen from chip_smoke.py phase
+# 3's times of both designs at the batches the solver launches (phase
+# 8b/8d's histogram of n per operation; PERF.md).
+WARP_MAX_VALUES = 1024
+# Blocks of an elementwise launch at most: the grid-stride loop takes
+# the rest.
+EXPANSION_MAX_BLOCKS = 8192
 # The column-loop kernels (csrc/expansion_chol.cu, expansion_solve.cu):
 # a Cholesky block's rows (its threads, 128, but the pivot warp: one
 # update thread a row, so W + rows below it <= CHOL_MAX_ROWS), and the
@@ -67,13 +91,15 @@ CHOL_ROW_TILE = 32
 # columns.
 SOLVE_LATENCY_GROUPS = 1024
 
-LAUNCHES = {"exp_add": 0, "exp_mul": 0, "exp_div": 0, "exp_add_f64": 0,
-            "exp_mul_f64": 0, "exp_cholesky_panel": 0,
-            "exp_solve_unblocked": 0}
 _OPS = {"exp_add": 0, "exp_mul": 1, "exp_div": 2, "exp_add_f64": 3,
         "exp_mul_f64": 4}
+LAUNCHES = {name: 0 for op in _OPS for name in (op, op + "_warp")}
+LAUNCHES.update({name: 0 for loop in ("exp_cholesky_panel",
+                                      "exp_solve_unblocked")
+                 for name in (loop, loop + "_warp")})
 
-_LIB = []
+# {None: the K <= THREAD_MAX_WORDS library, k: the library of K = k}
+_LIB = {}
 
 
 def reset_launches() -> None:
@@ -82,7 +108,8 @@ def reset_launches() -> None:
 
 
 def max_precision_bits() -> int:
-    """The largest --precision whose expansions the kernels hold."""
+    """The largest --precision whose expansions the kernels hold (at
+    least the CRT prime pool's limit)."""
     return core.WORD_BITS * MAX_WORDS
 
 
@@ -94,33 +121,50 @@ def check_words(name: str, k: int) -> None:
             f"{max_precision_bits()})")
 
 
-def _library_path() -> Path:
+def elementwise_design(n: int, k: int) -> str:
+    """"thread" (a value a thread) or "warp" (a value a warp) for n
+    values of K words."""
+    if k > THREAD_MAX_WORDS or (k >= 3 and n <= WARP_MAX_VALUES):
+        return "warp"
+    return "thread"
+
+
+def _library_path(k: int | None = None) -> Path:
+    """The library of K = 1..THREAD_MAX_WORDS (k None), or of one K
+    above."""
     digest = hashlib.sha256()
     for name in SOURCES:
         digest.update((CSRC / name).read_bytes())
-    digest.update(" ".join(NVCC_FLAGS + [str(MAX_WORDS)]).encode())
-    return BUILD_DIR / f"libexpansion_kernels_{digest.hexdigest()[:16]}.so"
+    digest.update(" ".join(NVCC_FLAGS + [str(MAX_WORDS),
+                                         str(THREAD_MAX_WORDS)]).encode())
+    tag = "" if k is None else f"k{k}_"
+    return BUILD_DIR / (f"libexpansion_kernels_{tag}"
+                        f"{digest.hexdigest()[:16]}.so")
 
 
-def build(force: bool = False) -> dict:
-    """Compile the units for every K into ``csrc/build/`` unless a
-    library built from the same sources and flags exists: one
-    ``nvcc -c`` per unit and K, all started together, then one link.  Returns
-    the build record (seconds, the ``-Xptxas -v`` resource lines, the
-    library path)."""
-    lib = _library_path()
+def build(force: bool = False, k: int | None = None) -> dict:
+    """Compile the units into ``csrc/build/`` unless a library built from
+    the same sources and flags exists: for k None every K in
+    1..THREAD_MAX_WORDS, else the one K = k above it; one ``nvcc -c`` per
+    unit and K, all started together, then one link.  Returns the build
+    record (seconds, the ``-Xptxas -v`` resource lines, the library
+    path)."""
+    if k is not None and not THREAD_MAX_WORDS < k <= MAX_WORDS:
+        raise ValueError(f"no library of its own for K={k}")
+    lib = _library_path(k)
     if lib.exists() and not force:
         return {"library": str(lib), "seconds": 0.0, "ptxas": [],
                 "cached": True}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     pid = os.getpid()
     t0 = time.time()
+    words = range(1, THREAD_MAX_WORDS + 1) if k is None else (k,)
     jobs = []
     for unit in UNITS:
-        for k in range(1, MAX_WORDS + 1):
-            obj = BUILD_DIR / f"{Path(unit).stem}_k{k}.{pid}.o"
-            extra = [f"-DEXP_K={k}"] + (
-                ["-DEXP_CLASS_ENTRIES"] if k == 1 and unit == UNITS[0]
+        for kk in words:
+            obj = BUILD_DIR / f"{Path(unit).stem}_k{kk}.{pid}.o"
+            extra = [f"-DEXP_K={kk}"] + (
+                ["-DEXP_CLASS_ENTRIES"] if kk == 1 and unit == UNITS[0]
                 else [])
             cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-Xptxas", "-v", "-c",
                    "-o", str(obj), str(CSRC / unit)]
@@ -155,28 +199,44 @@ def build(force: bool = False) -> dict:
             "ptxas": lines, "cached": False}
 
 
-def _lib():
-    """The loaded library, built at first use."""
-    if _LIB:
-        return _LIB[0]
-    lib = ctypes.CDLL(build()["library"])
+def _bind(lib, k: int) -> None:
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-    for k in range(1, MAX_WORDS + 1):
-        for name, args in (
-                ("expansion_launch", [vp, cl, vp, cl, vp, cl, ci, ci, vp]),
-                ("expansion_chol", [vp, vp, vp, ci, ci, ci, ci, ci, vp]),
-                ("expansion_solve", [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                     vp])):
-            fn = getattr(lib, f"{name}_k{k}")
-            fn.argtypes = args
-            fn.restype = ci
-    lib.expansion_max_words.restype = ci
-    lib.expansion_threads.restype = ci
-    if (lib.expansion_max_words(), lib.expansion_threads()) != (
-            MAX_WORDS, EXPANSION_THREADS):
-        raise RuntimeError("expansion kernel library disagrees on its "
-                           "word limit or block size")
-    _LIB.append(lib)
+    entries = [("expansion_launch", [vp, cl, vp, cl, vp, cl, ci, ci, ci,
+                                     vp]),
+               ("expansion_chol", [vp, vp, vp, ci, ci, ci, ci, ci, vp])]
+    if k <= THREAD_MAX_WORDS:
+        entries.append(("expansion_solve", [vp, vp, vp, vp, ci, ci, ci, ci,
+                                            ci, vp]))
+    else:
+        entries.append(("expansion_solve_warps", [vp, vp, vp, vp, vp, ci,
+                                                  ci, ci, ci, vp]))
+    for name, args in entries:
+        fn = getattr(lib, f"{name}_k{k}")
+        fn.argtypes = args
+        fn.restype = ci
+
+
+def _lib(k: int):
+    """The loaded library that holds K = k, built at first use."""
+    key = None if k <= THREAD_MAX_WORDS else k
+    if key in _LIB:
+        return _LIB[key]
+    lib = ctypes.CDLL(build(k=key)["library"])
+    if key is None:
+        for kk in range(1, THREAD_MAX_WORDS + 1):
+            _bind(lib, kk)
+        names = ("expansion_max_words", "expansion_thread_max_words",
+                 "expansion_threads", "expansion_warps")
+        for name in names:
+            getattr(lib, name).restype = ctypes.c_int
+        if tuple(getattr(lib, name)() for name in names) != (
+                MAX_WORDS, THREAD_MAX_WORDS, EXPANSION_THREADS,
+                EXPANSION_WARPS):
+            raise RuntimeError("expansion kernel library disagrees on its "
+                               "word limits or block sizes")
+    else:
+        _bind(lib, k)
+    _LIB[key] = lib
     return lib
 
 
@@ -193,19 +253,26 @@ def _operand(x, batch, width: int):
     return x.expand(batch + tail).contiguous(), width
 
 
-def _launch(name, a, b, batch, k, b_width):
+def _launch(name, a, b, batch, k, b_width, design):
     out = torch.empty(batch + (k,), dtype=torch.float64, device=a.device)
     n = out.numel() // k
     if n == 0:
         return out
+    design = design or elementwise_design(n, k)
+    if design not in ("thread", "warp") or (
+            design == "warp" and k < 3) or (
+            design == "thread" and k > THREAD_MAX_WORDS):
+        raise ValueError(f"{name}: no {design!r} design at K={k}")
     (a, sa), (b, sb) = _operand(a, batch, k), _operand(b, batch, b_width)
-    blocks = max(1, -(-n // EXPANSION_THREADS))
-    err = getattr(_lib(), f"expansion_launch_k{k}")(
+    per_block = EXPANSION_WARPS if design == "warp" else EXPANSION_THREADS
+    blocks = min(EXPANSION_MAX_BLOCKS, max(1, -(-n // per_block)))
+    err = getattr(_lib(k), f"expansion_launch_k{k}")(
         a.data_ptr(), sa, b.data_ptr(), sb, out.data_ptr(), n,
-        _OPS[name], blocks,
+        _OPS[name], int(design == "warp"), blocks,
         torch.cuda.current_stream(out.device).cuda_stream)
-    _status(name, err)
-    LAUNCHES[name] += 1
+    key = name + ("_warp" if design == "warp" else "")
+    _status(key, err)
+    LAUNCHES[key] += 1
     return out
 
 
@@ -223,7 +290,7 @@ def _on_cuda(name, *tensors):
     return dev.type == "cuda"
 
 
-def _binary(name, a, b, plain):
+def _binary(name, a, b, plain, design):
     if not _on_cuda(name, a, b):
         return plain(a, b)
     k = a.shape[-1]
@@ -231,41 +298,44 @@ def _binary(name, a, b, plain):
         raise ValueError(f"{name}: word counts {k} != {b.shape[-1]}")
     check_words(name, k)
     batch = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
-    return _launch(name, a, b, batch, k, k)
+    return _launch(name, a, b, batch, k, k, design)
 
 
-def _with_float(name, a, x, plain):
+def _with_float(name, a, x, plain, design):
     x = core._scalar_operand(a, x)
     if not _on_cuda(name, a, x):
         return plain(a, x)
     k = a.shape[-1]
     check_words(name, k)
-    return _launch(name, a, x, a.shape[:-1], k, 1)
+    return _launch(name, a, x, a.shape[:-1], k, 1, design)
 
 
-def exp_add(a, b):
+# ``design`` ("thread" or "warp") overrides elementwise_design on the card,
+# for the comparison of the two designs (chip_smoke.py phase 3).
+
+def exp_add(a, b, design=None):
     """a + b (float64 expansions, broadcasting over the batch axes)."""
-    return _binary("exp_add", a, b, core.add_plain)
+    return _binary("exp_add", a, b, core.add_plain, design)
 
 
-def exp_mul(a, b):
+def exp_mul(a, b, design=None):
     """a * b, truncated (float64 expansions, broadcasting)."""
-    return _binary("exp_mul", a, b, core.mul_plain)
+    return _binary("exp_mul", a, b, core.mul_plain, design)
 
 
-def exp_div(a, b):
+def exp_div(a, b, design=None):
     """a / b by long division (float64 expansions, broadcasting)."""
-    return _binary("exp_div", a, b, core.div_plain)
+    return _binary("exp_div", a, b, core.div_plain, design)
 
 
-def exp_add_f64(a, x):
+def exp_add_f64(a, x, design=None):
     """a + x for a float64 tensor x over a's batch axes."""
-    return _with_float("exp_add_f64", a, x, core.add_f64_plain)
+    return _with_float("exp_add_f64", a, x, core.add_f64_plain, design)
 
 
-def exp_mul_f64(a, x):
+def exp_mul_f64(a, x, design=None):
     """a * x for a float64 tensor x over a's batch axes."""
-    return _with_float("exp_mul_f64", a, x, core.mul_f64_plain)
+    return _with_float("exp_mul_f64", a, x, core.mul_f64_plain, design)
 
 
 # ---------------------------------------------------------------------------
@@ -351,12 +421,13 @@ def exp_cholesky_panel(c):
     # the private pivot blocks of every block but a panel's first
     scratch = torch.empty(((tiles - 1) * BB, W, W, k), dtype=c.dtype,
                           device=c.device)
-    err = getattr(_lib(), f"expansion_chol_k{k}")(
+    err = getattr(_lib(k), f"expansion_chol_k{k}")(
         c.data_ptr(), out.data_ptr(),
         scratch.data_ptr() if tiles > 1 else None, BB, R, W, tiles, rt,
         torch.cuda.current_stream(c.device).cuda_stream)
-    _status("exp_cholesky_panel", err)
-    LAUNCHES["exp_cholesky_panel"] += 1
+    key = "exp_cholesky_panel" + ("_warp" if k > THREAD_MAX_WORDS else "")
+    _status(key, err)
+    LAUNCHES[key] += 1
     return out
 
 
@@ -387,15 +458,23 @@ def exp_solve_unblocked(l, b, inv_d, transpose: bool = False):
         raise ValueError(f"exp_solve_unblocked: {n} rows exceed the "
                          f"kernel's 64")
     check_words("exp_solve_unblocked", k)
-    lanes = solve_lanes(BB, n, m)
     l, b, inv_d = l.contiguous(), b.contiguous(), inv_d.contiguous()
     out = torch.empty_like(b)
     if out.numel() == 0:
         return out
-    err = getattr(_lib(), f"expansion_solve_k{k}")(
-        l.data_ptr(), b.data_ptr(), inv_d.data_ptr(), out.data_ptr(), BB, n,
-        m, lanes, int(transpose),
-        torch.cuda.current_stream(b.device).cuda_stream)
-    _status("exp_solve_unblocked", err)
-    LAUNCHES["exp_solve_unblocked"] += 1
+    stream = torch.cuda.current_stream(b.device).cuda_stream
+    if k > THREAD_MAX_WORDS:
+        # a warp a column; each column's n terms in a scratch of its own
+        tree = torch.empty((BB, m, n, k), dtype=b.dtype, device=b.device)
+        err = getattr(_lib(k), f"expansion_solve_warps_k{k}")(
+            l.data_ptr(), b.data_ptr(), inv_d.data_ptr(), out.data_ptr(),
+            tree.data_ptr(), BB, n, m, int(transpose), stream)
+        key = "exp_solve_unblocked_warp"
+    else:
+        err = getattr(_lib(k), f"expansion_solve_k{k}")(
+            l.data_ptr(), b.data_ptr(), inv_d.data_ptr(), out.data_ptr(),
+            BB, n, m, solve_lanes(BB, n, m), int(transpose), stream)
+        key = "exp_solve_unblocked"
+    _status(key, err)
+    LAUNCHES[key] += 1
     return out

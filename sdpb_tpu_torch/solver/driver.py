@@ -92,7 +92,10 @@ def _sync(device):
 def check_format(problem: BucketedProblem, params: SolverParams) -> None:
     """The problem's MP arrays must be in the parameters' word format at
     its word count; float64 expansions on the card must fit the
-    expansion kernels (K <= 20 words, --precision 1060)."""
+    expansion kernels (K <= ops/expansion_kernels.py MAX_WORDS = 54
+    words, the CRT prime pool's --precision 2862; up to K = 20 their
+    operations run a value a thread where the batch fills the card,
+    above it a value a warp)."""
     if (problem.dtype, problem.k) != (params.dtype, params.n_words):
         raise ValueError(
             f"the problem holds {problem.k} slots of {problem.dtype}; "

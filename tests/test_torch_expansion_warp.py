@@ -1,12 +1,14 @@
-"""The column-loop kernels' per-value operations against the per-thread
-ones, on the CPU.
+"""The register and warp operations against the per-thread ones, on the
+CPU.
 
 ``csrc/expansion_regs.cuh`` (a thread's operations in registers, and for
-larger K in loops over the partial products' levels) and
+larger K in loops over the partial products' levels; K <= 20) and
 ``csrc/expansion_warp.cuh`` (one value per warp: a Cholesky step's pivot
-chain) must give the bits of ``csrc/expansion.cuh`` (the elementwise
-kernel's operations, held to mp/core.py's plain versions in
-test_torch_expansion.py).  Here all three are compiled with g++
+chain, the elementwise kernel's value-a-warp design, every operation of
+the kernels above K = 20) must give the bits of ``csrc/expansion.cuh``
+(held to mp/core.py's plain versions in test_torch_expansion.py), for
+add, mul, add_f64, mul_f64 and div, at K = 1..20 and (the warp's alone)
+at K = 21, 23, 32, 33 and 54.  Here all three are compiled with g++
 -ffp-contract=off (nvcc runs with -fmad=false); the warp operations run
 on 32 host threads with a ``std::barrier`` as ``__syncwarp()``.  Inputs:
 normalized expansions over exponents 2^-500..2^500 (at K = 20 the tails
@@ -28,19 +30,23 @@ from sdpb_tpu_torch.ops import expansion_kernels as ek
 
 from torch_port_util import one_torch_thread  # noqa: F401,E402
 
-KS = tuple(range(1, ek.MAX_WORDS + 1))
-WARP_KS = tuple(range(3, ek.MAX_WORDS + 1))
+KS = tuple(range(1, ek.THREAD_MAX_WORDS + 1))
+# above THREAD_MAX_WORDS only the warp operations run: the first K, the
+# 1200-bit one, both sides of the merge network's 32 pairs, the limit
+WIDE_KS = (21, 23, 32, 33, 54)
+WARP_KS = tuple(range(3, ek.THREAD_MAX_WORDS + 1)) + WIDE_KS
+OPS = ("add", "mul", "add_f64", "mul_f64", "div")
 
 REGS = r"""
 #define EXP_HD inline
 #include "expansion_regs.cuh"
 
-// op: 0 add, 1 mul, 2 add_f64 (b's first word); out_new from
-// expansion_regs.cuh, out_old from expansion.cuh.
+// op: 0 add, 1 mul, 2 add_f64, 3 mul_f64 (b's first word), 4 div;
+// out_new from expansion_regs.cuh, out_old from expansion.cuh.
 template <int K>
 static void run(int op, const double* a, const double* b, double* onew,
                 double* oold, long n) {
-  double buf[expn::regs::thread_words<K>()];
+  double buf[expn::regs::thread_words<K>() + expn::regs::div_words<K>()];
   const expn::regs::Emit em{buf, 1};
   for (long v = 0; v < n; ++v) {
     double x[K], y[K], o[K];
@@ -54,12 +60,44 @@ static void run(int op, const double* a, const double* b, double* onew,
     } else if (op == 1) {
       expn::regs::mul<K>(x, y, em, o);
       expn::mul<K>(x, y, oold + v * K);
-    } else {
+    } else if (op == 2) {
       expn::regs::add_f64<K>(x, y[0], em, o);
       expn::add_f64<K>(x, y[0], oold + v * K);
+    } else if (op == 3) {
+      expn::regs::mul_f64<K>(x, y[0], em, o);
+      expn::mul_f64<K>(x, y[0], oold + v * K);
+    } else {
+      expn::regs::div<K>(x, y, 1, em, o);
+      expn::div<K>(x, y, oold + v * K);
     }
     for (int t = 0; t < K; ++t) onew[v * K + t] = o[t];
   }
+}
+
+// expansion.cuh's operations alone (above THREAD_MAX_WORDS).
+template <int K>
+static void run_old(int op, const double* a, const double* b, double* oold,
+                    long n) {
+  for (long v = 0; v < n; ++v) {
+    const double* x = a + v * K;
+    const double* y = b + v * K;
+    double* o = oold + v * K;
+    switch (op) {
+      case 0: expn::add<K>(x, y, o); break;
+      case 1: expn::mul<K>(x, y, o); break;
+      case 2: expn::add_f64<K>(x, y[0], o); break;
+      case 3: expn::mul_f64<K>(x, y[0], o); break;
+      default: expn::div<K>(x, y, o);
+    }
+  }
+}
+
+extern "C" int host_old(int k, int op, const double* a, const double* b,
+                        double* oold, long n) {
+  switch (k) {
+    OLD_CASES
+  }
+  return 1;
 }
 
 extern "C" int host_regs(int k, int op, const double* a, const double* b,
@@ -83,13 +121,15 @@ static std::barrier<>* g_warp;
 #define EXP_SYNC_WARP() g_warp->arrive_and_wait()
 #include "expansion_warp.cuh"
 
-// One warp (32 host threads) a value: op 0 add, 1 mul, 2 add_f64 (b's
-// first word), out from expansion_warp.cuh.
+// One warp (32 host threads) a value: op 0 add, 1 mul, 2 add_f64, 3
+// mul_f64 (b's first word), 4 div, out from expansion_warp.cuh.
 template <int K>
 static void run(int op, const double* a, const double* b, double* out,
                 long n) {
-  std::vector<double> w(expn::warp::scratch_words<K>());
+  // the scratch, then div's divisor and quotient words
+  std::vector<double> w(expn::warp::scratch_words<K>() + 2 * K + 1);
   const expn::warp::Scratch<K> ws(w.data());
+  double* bw = w.data() + expn::warp::scratch_words<K>();
   std::barrier<> sync(32);
   g_warp = &sync;
   std::vector<std::thread> lanes;
@@ -97,19 +137,22 @@ static void run(int op, const double* a, const double* b, double* out,
     lanes.emplace_back([&, lane] {
       expn::warp::init_codes<K>(ws, lane);
       for (long v = 0; v < n; ++v) {
-        if (lane < K) {
-          ws.x[lane] = a[v * K + lane];
-          ws.y[lane] = b[v * K + lane];
+        for (int t = lane; t < K; t += 32) {
+          ws.x[t] = a[v * K + t];
+          ws.y[t] = b[v * K + t];
+          bw[t] = b[v * K + t];
         }
         EXP_SYNC_WARP();
+        const double f = b[v * K];
         const expn::warp::Res r =
             op == 0 ? expn::warp::add<K>(ws, lane)
-                    : op == 1 ? expn::warp::mul<K>(ws, lane)
-                              : expn::warp::add_f64<K>(ws, b[v * K], lane);
+            : op == 1 ? expn::warp::mul<K>(ws, lane)
+            : op == 2 ? expn::warp::add_f64<K>(ws, f, lane)
+            : op == 3 ? expn::warp::mul_f64<K>(ws, ws.x, f, lane)
+                      : expn::warp::div<K>(ws, bw, bw + K, lane);
         EXP_SYNC_WARP();
-        if (lane < K)
-          out[v * K + lane] =
-              lane < r.j ? ws.emit[lane] : (lane == r.j ? r.e : 0.0);
+        for (int t = lane; t < K; t += 32)
+          out[v * K + t] = expn::warp::res_word<K>(ws, r, t);
         EXP_SYNC_WARP();
       }
     });
@@ -126,8 +169,9 @@ extern "C" int host_warp(int k, int op, const double* a, const double* b,
 """
 
 
-def _build(d, name, src, cases):
-    (d / f"{name}.cpp").write_text(src.replace("CASES", cases))
+def _build(d, name, src, cases, old_cases=""):
+    (d / f"{name}.cpp").write_text(src.replace("OLD_CASES", old_cases)
+                                   .replace("CASES", cases))
     return subprocess.Popen(
         [shutil.which("g++"), "-std=c++20", "-O1", "-ffp-contract=off",
          "-fno-fast-math", "-fPIC", "-shared", "-pthread", f"-I{ek.CSRC}",
@@ -148,10 +192,15 @@ def libs(tmp_path_factory):
             for k in KS if k <= 12)),
         "regs_hi": _build(d, "regs_hi", REGS, " ".join(
             f"case {k}: run<{k}>(op, a, b, onew, oold, n); return 0;"
-            for k in KS if k > 12)),
+            for k in KS if k > 12), " ".join(
+            f"case {k}: run_old<{k}>(op, a, b, oold, n); return 0;"
+            for k in WIDE_KS)),
         "warp": _build(d, "warp", WARP, " ".join(
             f"case {k}: run<{k}>(op, a, b, out, n); return 0;"
-            for k in WARP_KS)),
+            for k in WARP_KS if k <= 20)),
+        "warp_wide": _build(d, "warp_wide", WARP, " ".join(
+            f"case {k}: run<{k}>(op, a, b, out, n); return 0;"
+            for k in WIDE_KS)),
     }
     out = {}
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
@@ -159,12 +208,14 @@ def libs(tmp_path_factory):
         _, err = proc.communicate()
         assert proc.returncode == 0, err[-4000:]
         so = ctypes.CDLL(str(d / f"lib{name}.so"))
-        if name == "warp":
+        if name.startswith("warp"):
             so.host_warp.argtypes = [ci, ci, vp, vp, vp, cl]
             so.host_warp.restype = ci
         else:
             so.host_regs.argtypes = [ci, ci, vp, vp, vp, vp, cl]
             so.host_regs.restype = ci
+            so.host_old.argtypes = [ci, ci, vp, vp, vp, cl]
+            so.host_old.restype = ci
         out[name] = so
     return out
 
@@ -210,10 +261,11 @@ def _operands(k, n, seed):
 @pytest.mark.parametrize("k", KS)
 def test_register_ops_match_per_thread_ops(libs, k):
     """expansion_regs.cuh add, mul (unrolled up to K = 8, streamed over
-    the levels above) and add_f64 give expansion.cuh's bits."""
+    the levels above), add_f64, mul_f64 and div give expansion.cuh's
+    bits."""
     a, b = _operands(k, 200, k)
     so = libs["regs_lo" if k <= 12 else "regs_hi"]
-    for op, name in enumerate(("add", "mul", "add_f64")):
+    for op, name in enumerate(OPS):
         new, old = torch.empty_like(a), torch.empty_like(a)
         assert so.host_regs(k, op, a.data_ptr(), b.data_ptr(),
                             new.data_ptr(), old.data_ptr(), a.shape[0]) == 0
@@ -222,15 +274,23 @@ def test_register_ops_match_per_thread_ops(libs, k):
 
 @pytest.mark.parametrize("k", WARP_KS)
 def test_warp_ops_match_per_thread_ops(libs, k):
-    """expansion_warp.cuh add, mul and add_f64 (a value a warp; the
-    renormalization unrolled up to 96 words, in loops above) give
+    """expansion_warp.cuh add, mul, add_f64, mul_f64 and div (a value a
+    warp; the renormalization unrolled up to 96 words, in loops above;
+    above K = 20 the product streamed a level at a time) give
     expansion.cuh's bits."""
-    a, b = _operands(k, 48, 100 + k)
+    wide = k > ek.THREAD_MAX_WORDS
+    a, b = _operands(k, 24 if wide else 48, 100 + k)
     so = libs["regs_lo" if k <= 12 else "regs_hi"]
-    for op, name in enumerate(("add", "mul", "add_f64")):
+    for op, name in enumerate(OPS):
         got, new, old = (torch.empty_like(a) for _ in range(3))
-        assert libs["warp"].host_warp(k, op, a.data_ptr(), b.data_ptr(),
-                                      got.data_ptr(), a.shape[0]) == 0
-        assert so.host_regs(k, op, a.data_ptr(), b.data_ptr(),
-                            new.data_ptr(), old.data_ptr(), a.shape[0]) == 0
+        assert libs["warp_wide" if wide else "warp"].host_warp(
+            k, op, a.data_ptr(), b.data_ptr(), got.data_ptr(),
+            a.shape[0]) == 0
+        if wide:
+            assert so.host_old(k, op, a.data_ptr(), b.data_ptr(),
+                               old.data_ptr(), a.shape[0]) == 0
+        else:
+            assert so.host_regs(k, op, a.data_ptr(), b.data_ptr(),
+                                new.data_ptr(), old.data_ptr(),
+                                a.shape[0]) == 0
         _same(got, old, (k, name))
