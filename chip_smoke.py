@@ -6,10 +6,12 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each printing its name and elapsed seconds:
   1. environment: card name and power limit, torch/CUDA versions, mpmath
-  2. build: the limb kernels of every slot class (128, 256 and 512
-     slots), the float64-expansion library of K = 1..20 (the
-     elementwise kernel in both designs, the Cholesky column loop and
-     the substitution, each a value a thread where it can) and the
+  2. build: the port's decimal codec (csrc/codec.cpp, the host C++
+     compiler; it must load, its seconds printed), the limb kernels of
+     every slot class (128, 256 and 512 slots), the float64-expansion
+     library of K = 1..20 (the elementwise kernel in both designs, the
+     Cholesky column loop and the substitution, each a value a thread
+     where it can) and the
      expansion libraries of K = 21, 23, 32, 33, 53 and 54 (every
      operation a value a warp; one library a K, as a first call at that
      K builds it) with nvcc, one process per object, all started
@@ -52,7 +54,9 @@ Phases, each printing its name and elapsed seconds:
      then solved by the port's sdpb with checkpoints on: SIGTERM after
      20 iterations (exit 143 and a checkpoint), the same command again
      (restart, PrimalDualOptimal, block_timings, a final checkpoint);
-     then 5 iterations at --precision 2048 (S = 230)
+     spectrum on that solution (as examples/quickstart.py runs it),
+     its zeros against the spectrum of sdpb_tpu's recorded 1d solution
+     within 1e-30; then 5 iterations at --precision 2048 (S = 230)
   7. above 512 rows: the synthetic problem with N = 1024 for 1
      iteration (the Q Cholesky on 32 panels), its time, the Q
      Cholesky's time, peak memory against the memory estimate (no more
@@ -78,6 +82,18 @@ Phases, each printing its name and elapsed seconds:
      elementwise launches by values a launch and design, and one more
      iteration under torch.profiler (the column-loop kernels' device
      time)
+  9. outer_limits on the card, each step a process: the quickstart PMP
+     and a seeded full-width PMP (three blocks, 1x1 and 2x2 with poles,
+     two decision variables) through pmp2functions -p 128 (byte for
+     byte the in-process call's); outer_limits at --precision 128 (K =
+     3) within 1e-10 of the known objective and 1e-19 of sdpb_tpu's
+     recorded run (optimal and y); at 1024 and 1200 (K = 20, 23) and
+     the full-width PMP at 1024, the loop cut at a duality gap
+     threshold of 1e-2 (1.1 for the full width), against the same CLI
+     on the CPU (processes of their own from phase 3 on) to 1e-30 (the
+     full width 1e-24); --precision 3000 exiting 2
+     naming the prime pool's limit.  Each run's seconds, generations,
+     solves and expansion launches by caller
 
 The line before the last is one JSON object with a record per kernel
 and design (``exp_mul`` a value a thread, ``exp_mul_warp`` a value a
@@ -218,16 +234,25 @@ def phase_build():
     t = time.time()
     from concurrent.futures import ThreadPoolExecutor
 
+    from sdpb_tpu_torch.io import native_codec
     from sdpb_tpu_torch.ops import expansion_kernels as ek
     from sdpb_tpu_torch.ops import limb_kernels as lk
 
-    with ThreadPoolExecutor(2 + len(WIDE_KS)) as pool:
+    with ThreadPoolExecutor(3 + len(WIDE_KS)) as pool:
+        codec_job = pool.submit(native_codec.build, force=True)
         limb_job = pool.submit(lk.build, force=True)
         exp_job = pool.submit(ek.build, force=True)
         wide_jobs = {k: pool.submit(ek.build, force=True, k=k)
                      for k in WIDE_KS}
         infos, exp_info = limb_job.result(), exp_job.result()
         wide = {k: job.result() for k, job in wide_jobs.items()}
+        codec = codec_job.result()
+    # the decimal codec: every decimal the port reads or writes goes
+    # through it, so a failed build must not hide behind mpmath
+    if not native_codec.available():
+        raise AssertionError("the native decimal codec did not load")
+    print(f"decimal codec: c++ build {codec['seconds']:.1f} s -> "
+          f"{Path(codec['library']).name}", flush=True)
     spills = []
     builds = [(f"class {cap}", info, True) for cap, info in infos.items()]
     builds.append((f"expansion K=1..{ek.THREAD_MAX_WORDS}", exp_info, True))
@@ -1202,6 +1227,80 @@ def _records(path: Path) -> list:
     return json.loads(path.read_text()) if path.exists() else []
 
 
+def _recorded_spectrum(work: Path) -> list:
+    """The zeros of the spectrum of sdpb_tpu's recorded 1d solution
+    (data/reference_trajectories.json, the expansion run at 212 bits):
+    x_0.txt and c_minus_By.json written from its words by the port's
+    writers, then the port's spectrum in process."""
+    import torch
+
+    from sdpb_tpu_torch.apps import spectrum
+    from sdpb_tpu_torch.io import output as out_io
+    from sdpb_tpu_torch.io.sdp_json import read_sdp
+    from sdpb_tpu_torch.solver.data import bucketed_problem_from_raw
+
+    sdp = REPO / "sdpb_tpu_torch" / "data" / "quickstart_1d_sdp"
+    ref = json.loads((REPO / "sdpb_tpu_torch" / "data" /
+                      "reference_trajectories.json").read_text())[
+        "quickstart_1d_expansion"]
+    k, sol = ref["words"], ref["solution"]
+    problem = bucketed_problem_from_raw(read_sdp(sdp, k=k), k, "cpu",
+                                        torch.float64)
+    out = work / "recorded_out"
+    out_io.save_c_minus_By(out / "c_minus_By" / "c_minus_By.json", problem,
+                           torch.as_tensor(np.asarray(sol["y"])))
+    out_io.write_vector(out / "x_0.txt",
+                        np.asarray(sol["blocks"][0]["x"], dtype=np.float64))
+    if spectrum.main(["--precision", "768", "-i", str(sdp / "pmp_info.json"),
+                      "--solution", str(out), "--threshold", "1e-10", "-o",
+                      str(work / "recorded_spectrum.json"), "-j", "1",
+                      "-v", "0"]) != 0:
+        raise AssertionError("spectrum of the recorded solution failed")
+    return json.loads((work / "recorded_spectrum.json").read_text())
+
+
+# Phase 6's spectrum: each zero of the card's solution within this of the
+# recorded solution's (tests/test_torch_spectrum.py::
+# test_zero_moves_less_than_y: both solutions stop at a duality gap below
+# 1e-30, and a relative change d of y moves the zero by ~0.61 d).
+SPECTRUM_ZERO_TOL = "1e-30"
+
+
+def _spectrum_step(work: Path) -> None:
+    """The quickstart's last step (examples/quickstart.py:52-55) as a
+    process: spectrum on the restarted sdpb run's solution, its zeros
+    against the recorded solution's."""
+    t0 = time.time()
+    _run([sys.executable, "-m", "sdpb_tpu_torch.apps.spectrum",
+          "--precision", "768", "-i", "quickstart_1d_sdp/pmp_info.json",
+          "--solution", "out", "--threshold", "1e-10", "-o",
+          "spectrum.json"], work)
+    seconds = time.time() - t0
+    got = json.loads((work / "spectrum.json").read_text())
+    want = _recorded_spectrum(work)
+    counts = [len(b["zeros"]) for b in got]
+    if counts != [len(b["zeros"]) for b in want] or counts != [1]:
+        raise AssertionError(f"spectrum: zeros per block {counts}, the "
+                             f"recorded solution's "
+                             f"{[len(b['zeros']) for b in want]}")
+    import mpmath
+
+    ctx = mpmath.mp.clone()
+    ctx.prec = 2600
+    worst = ctx.mpf(0)
+    for gb, wb in zip(got, want):
+        for gz, wz in zip(gb["zeros"], wb["zeros"]):
+            worst = max(worst, abs(ctx.mpf(gz["zero"])
+                                   - ctx.mpf(wz["zero"])))
+    if not worst < ctx.mpf(SPECTRUM_ZERO_TOL):
+        raise AssertionError(f"spectrum: a zero {mpmath.nstr(worst, 5)} "
+                             f"from the recorded solution's")
+    print(f"spectrum (process) in {seconds:.2f} s: {sum(counts)} zero at "
+          f"x = {got[0]['zeros'][0]['zero'][:30]}, |diff| from the "
+          f"recorded solution's {mpmath.nstr(worst, 5)} (tolerance "
+          f"{SPECTRUM_ZERO_TOL})", flush=True)
+
+
 def phase_frontend(dev, out_root: Path):
     """The user's workflow in the port, each tool a process of its own:
     pmp_writer -> pmp2sdp -> sdpb with checkpoints, a SIGTERM drain and
@@ -1280,6 +1379,7 @@ def phase_frontend(dev, out_root: Path):
           f"{fields['primalObjective'][:40]} |diff| {dev_obj:.3e}; "
           f"block_timings and final checkpoint generation "
           f"{meta2['current']} written", flush=True)
+    _spectrum_step(work)
 
     prec = 2048
     S = limb.slots_for_precision(prec)
@@ -1917,6 +2017,303 @@ def phase_expansion(dev, out_root: Path, limb_full, cpu_jobs):
     return paths, mem
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: outer_limits on the card, each step a process
+# ---------------------------------------------------------------------------
+
+def _reference_outer_limits() -> dict:
+    """sdpb_tpu's outer_limits run on the quickstart at --precision 128
+    (data/reference_trajectories.json, tests/make_torch_reference_
+    trajectories.py): its options, optimal, y, constraints per
+    generation and solves."""
+    return json.loads((REPO / "sdpb_tpu_torch" / "data" /
+                       "reference_trajectories.json").read_text())[
+        "outer_limits_quickstart"]
+
+
+# The runs above K = 3 hold the card to the same CLI on the CPU, in a
+# process of its own started after phase 2.  The whole loop of the
+# quickstart (7 solves) takes the CPU 938 s at 1024 bits and 1204 s at
+# 1200 (one thread, the CLI's printed seconds on a CPU host), more
+# than the script's limit; so these runs cut the loop's depth: the gap
+# threshold 1e-2, its other options the recorded run's (2 solves and one
+# generation; 169 s on the CPU at 1024 bits).
+OL_CUT_GAP = "1e-2"
+OL_PRECISIONS = (1024, 1200)
+# The full-width run: three function blocks (1x1, 1x1 with a pole, 2x2
+# with three poles) and two decision variables, at --precision 1024,
+# cut to the duality gap threshold 1.1 (2 generations and solves; its
+# whole loop at 1e-10 takes the CPU 677 s at 128 bits, 35 constraints).
+OL_FULL_WIDTH = 1024
+OL_FULL_WIDTH_GAP = "1.1"
+# outer_limits on the card against the CPU: the largest |difference| of
+# the optimal and the y.  The pieces are host code equal in both; the
+# solves run the same MP operations, bit for bit kernel by kernel (phase
+# 3), but for the pivots' rsqrt seeds (8c) and the float64 eigensolves
+# behind the step lengths (cuSOLVER against LAPACK; steps that differ in
+# a float64 bit move the iterate's path, not the optimum): the 1x1
+# quickstart runs agree to the last digit (exploratory chip run, both
+# precisions), the full-width run, whose 2x2 blocks make the eigensolves
+# real and whose loop stops at a duality gap of 1.1, differed by
+# 8.2e-32.  A wrong operation moves them by far more.
+OL_DEVICE_TOL = {"quickstart": "1e-30", "full_width": "1e-24"}
+
+
+def _outer_limits_pmp(path: Path, seed: int = 11) -> None:
+    """A seeded PMP of three blocks, each polynomial's coefficients a
+    seeded +-10% from a positive pattern so that the problem stays
+    feasible and bounded: the quickstart's 1x1 block with a third
+    function, a 1x1 block with the pole -0.5 and a 2x2 block with the
+    poles -0.5, -1.25, -1.25; objective (0, -1, -1)."""
+    from sdpb_tpu_torch.io import pmp_writer as w
+
+    rng = np.random.default_rng(seed)
+
+    def c(*vals):
+        return [f"{v * (1 + 0.1 * rng.uniform(-1, 1)):.6f}" if v else "0"
+                for v in vals]
+
+    off = [c(0, 0.1, 0, 0, 0), c(0, 0, 0.05, 0, 0), c(0, 0, 0, 0, 0)]
+    w.write_pmp_json(path, objective=[0, -1, -1], normalization=[1, 0, 0],
+                     matrices=[
+        w.PositiveMatrixWithPrefactor(
+            prefactor=w.DampedRational(
+                constant=1, base="0.36787944117144233", poles=[]),
+            polynomials=[[[c(1, 0, 0, 0, 1), c(0, 0, 1, 0, 1 / 12),
+                           c(0, 1, 0, 0.2, 0)]]]),
+        w.PositiveMatrixWithPrefactor(
+            prefactor=w.DampedRational(constant=1, base="0.5",
+                                       poles=["-0.5"]),
+            polynomials=[[[c(1, 0, 1, 0, 1), c(0, 1, 0, 0, 0.1),
+                           c(0, 0, 1, 0, 0)]]]),
+        w.PositiveMatrixWithPrefactor(
+            prefactor=w.DampedRational(constant="0.75", base="0.5",
+                                       poles=["-0.5", "-1.25", "-1.25"]),
+            polynomials=[[[c(3, 0, 1, 0, 1), c(0, 0, 1, 0, 0),
+                           c(0, 1, 0, 0, 0)], off],
+                         [off, [c(2, 0, 0, 0, 1), c(0, 0, 1, 0, 0.1),
+                                c(0, 0, 0, 1, 0)]]])])
+
+
+def _ol_argv(work: Path, case: str, precision: int, tag: str,
+             gap=None) -> list:
+    opts = _reference_outer_limits()["options"]
+    return ["--functions", str(work / f"{case}_functions.json"),
+            "--points", str(work / f"{case}_points.json"),
+            "--precision", str(precision),
+            "--dualityGapThreshold", gap or opts["dualityGapThreshold"],
+            "--primalErrorThreshold", opts["primalErrorThreshold"],
+            "--dualErrorThreshold", opts["dualErrorThreshold"],
+            "--initialMatrixScalePrimal", opts["initialMatrixScalePrimal"],
+            "--initialMatrixScaleDual", opts["initialMatrixScaleDual"],
+            "-o", str(work / f"{tag}.json")]
+
+
+def _ol_cpu_cases():
+    """{tag: (case, precision, duality gap threshold)} of the runs held
+    to the CPU."""
+    cases = {f"quickstart_{p}": ("quickstart", p, OL_CUT_GAP)
+             for p in OL_PRECISIONS}
+    cases[f"full_width_{OL_FULL_WIDTH}"] = ("full_width", OL_FULL_WIDTH,
+                                            OL_FULL_WIDTH_GAP)
+    return cases
+
+
+def start_cpu_outer_limits(out_root: Path):
+    """Phase 9's inputs and the CPU side of its cut runs, started early:
+    the quickstart PMP (examples/quickstart.py:33-44) and the full-width
+    PMP through pmp2functions -p 128 in process, their points files, and
+    one outer_limits CLI process on the CPU per run (one torch thread
+    each).  Returns (work dir, processes by tag)."""
+    from sdpb_tpu_torch.apps import pmp2functions
+    from sdpb_tpu_torch.io import pmp_writer
+
+    work = out_root / "outer_limits"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "cpu").mkdir(parents=True)
+    pmp_writer.write_pmp_json(
+        work / "quickstart_pmp.json", objective=[0, -1],
+        normalization=[1, 0],
+        matrices=[pmp_writer.PositiveMatrixWithPrefactor(
+            prefactor=pmp_writer.DampedRational(
+                constant=1, base="0.36787944117144233", poles=[]),
+            polynomials=[[[[1, 0, 0, 0, 1], [0, 0, 1, 0, "1/12"]]]])])
+    _outer_limits_pmp(work / "full_width_pmp.json")
+    points = {"quickstart": _reference_outer_limits()["options"]["points"],
+              "full_width": [["0", "1", "4"], ["0", "2"], ["0", "1", "3"]]}
+    for case, pts in points.items():
+        if pmp2functions.main(["-p", "128", "-i", str(work /
+                                                     f"{case}_pmp.json"),
+                               "-o", str(work / "cpu" /
+                                         f"{case}_functions.json"),
+                               "-v", "0"]) != 0:
+            raise AssertionError(f"pmp2functions failed on {case}")
+        for d in (work, work / "cpu"):
+            (d / f"{case}_points.json").write_text(
+                json.dumps({"points": pts}))
+    env = _port_env()
+    env.update(CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    code = ("import sys, torch; torch.set_num_threads(1); "
+            "from sdpb_tpu_torch.apps import outer_limits as o; "
+            "sys.exit(o.main(sys.argv[1:], device='cpu'))")
+    procs = {}
+    for tag, (case, prec, gap) in _ol_cpu_cases().items():
+        argv = _ol_argv(work / "cpu", case, prec, tag, gap)
+        procs[tag] = subprocess.Popen(
+            [sys.executable, "-c", code, *argv], cwd=str(REPO), env=env,
+            stdout=open(work / "cpu" / f"{tag}.log", "w"),
+            stderr=subprocess.STDOUT)
+    return work, procs
+
+
+def outer_limits_child(argv) -> int:
+    """Body of phase 9's processes on the card: outer_limits' CLI on
+    its default device, with the expansion kernels' launches and their
+    callers written beside its output (<out>.launches.json)."""
+    from sdpb_tpu_torch.apps import outer_limits
+    from sdpb_tpu_torch.ops import expansion_kernels as ek
+
+    ek.reset_launches()
+    with _LaunchCallers() as callers:
+        rc = outer_limits.main(argv)
+    out = Path(argv[argv.index("-o") + 1])
+    out.with_suffix(".launches.json").write_text(json.dumps(
+        {"launches": dict(ek.LAUNCHES), "callers": callers.report()}))
+    return rc
+
+
+def _ol_card(argv, label):
+    """One outer_limits run on the card in a process of its own: its
+    output, seconds, generations, solves and launches."""
+    code = ("import sys, chip_smoke; "
+            "sys.exit(chip_smoke.outer_limits_child(sys.argv[1:]))")
+    t0 = time.time()
+    proc = _run([sys.executable, "-c", code, *argv], str(REPO), timeout=900)
+    seconds = time.time() - t0
+    out = Path(argv[argv.index("-o") + 1])
+    lines = proc.stdout.splitlines()
+    run = {"out": json.loads(out.read_text()), "seconds": seconds,
+           "generations": sum(x.startswith("num_constraints:")
+                              for x in lines),
+           "solves": sum(x.startswith("Threshold:") for x in lines),
+           "constraints": [int(x.split()[1]) for x in lines
+                           if x.startswith("num_constraints:")],
+           **json.loads(out.with_suffix(".launches.json").read_text())}
+    _require_launches(label, run["launches"], EXP_PATH_KERNELS)
+    return run
+
+
+def _ol_gap(a: dict, b: dict):
+    """The largest |difference| of the optimal and the y of two
+    outer_limits outputs."""
+    import mpmath
+
+    ctx = mpmath.mp.clone()
+    ctx.prec = 4096
+    pairs = [(a["optimal"], b["optimal"])] + list(zip(a["y"], b["y"]))
+    if len(a["y"]) != len(b["y"]):
+        raise AssertionError(f"y of {len(a['y'])} and {len(b['y'])} "
+                             f"entries")
+    return max(abs(ctx.mpf(x) - ctx.mpf(y)) for x, y in pairs)
+
+
+def _ol_report(label, run, extra):
+    print(f"{label}: {run['seconds']:.1f} s, {run['generations']} "
+          f"generations ({run['constraints']} constraints), "
+          f"{run['solves']} solves, optimal {run['out']['optimal'][:40]}; "
+          f"{extra}; launches {json.dumps(run['launches'])}; by caller "
+          f"{json.dumps(run['callers'])}", flush=True)
+
+
+def phase_outer_limits(dev, out_root: Path, cpu_jobs):
+    """Phase 9: the quickstart through pmp2functions (a process, its
+    file byte for byte the in-process call's), outer_limits on the card
+    at --precision 128 (K = 3) against the known objective and sdpb_tpu's
+    recorded run, at 1024 and 1200 (K = 20, 23) and the full-width PMP at
+    1024 against the CPU processes of start_cpu_outer_limits, and
+    --precision 3000 exiting 2; each a process of its own."""
+    t = time.time()
+    import mpmath
+
+    work, procs = cpu_jobs
+    ref = _reference_outer_limits()
+    py = sys.executable
+    for case in ("quickstart", "full_width"):
+        _run([py, "-m", "sdpb_tpu_torch.apps.pmp2functions", "-p", "128",
+              "-i", f"{case}_pmp.json", "-o", f"{case}_functions.json"],
+             work)
+        if (work / f"{case}_functions.json").read_bytes() != \
+                (work / "cpu" / f"{case}_functions.json").read_bytes():
+            raise AssertionError(f"pmp2functions' process wrote another "
+                                 f"{case} functions file than its call")
+    print("pmp2functions -p 128 (process): the quickstart's and the full "
+          "width's functions files equal byte for byte to the in-process "
+          "call's", flush=True)
+
+    runs = {}
+    ctx = mpmath.mp.clone()
+    ctx.prec = 4096
+    run = _ol_card(_ol_argv(work, "quickstart", 128, "card_128"),
+                   "outer_limits --precision 128")
+    known = abs(ctx.mpf(run["out"]["optimal"])
+                - ctx.mpf("1.8402657631320492"))
+    recorded = _ol_gap(run["out"], ref)
+    if not (known <= ctx.mpf("1e-10") and recorded <= ctx.mpf("1e-19")):
+        raise AssertionError(f"outer_limits --precision 128 on the card: "
+                             f"optimal {run['out']['optimal']}, "
+                             f"{mpmath.nstr(known, 5)} from the known "
+                             f"objective, {mpmath.nstr(recorded, 5)} from "
+                             f"sdpb_tpu's run")
+    _ol_report("outer_limits --precision 128 (K = 3) on the card", run,
+               f"|diff| from 1.8402657631320492 {mpmath.nstr(known, 5)}, "
+               f"from sdpb_tpu's recorded run (optimal and y) "
+               f"{mpmath.nstr(recorded, 5)}; sdpb_tpu's constraints "
+               f"{ref['constraints']}, solves {ref['solves']}")
+    runs["outer_limits_128"] = run["launches"]
+
+    from sdpb_tpu_torch.solver.params import SolverParams
+
+    for tag, (case, prec, gap) in _ol_cpu_cases().items():
+        k = SolverParams(precision=prec, word_dtype="float64").n_words
+        run = _ol_card(_ol_argv(work, case, prec, f"card_{tag}", gap),
+                       f"outer_limits {tag}")
+        t1 = time.time()
+        rc = procs[tag].wait(timeout=900)
+        waited = time.time() - t1
+        log = (work / "cpu" / f"{tag}.log").read_text()
+        if rc != 0:
+            raise AssertionError(f"outer_limits {tag} on the CPU exited "
+                                 f"{rc}: {log[-2000:]}")
+        cpu = json.loads((work / "cpu" / f"{tag}.json").read_text())
+        diff, tol = _ol_gap(run["out"], cpu), OL_DEVICE_TOL[case]
+        if not diff <= ctx.mpf(tol):
+            raise AssertionError(f"outer_limits {tag}: the card's optimal "
+                                 f"{run['out']['optimal']} or y "
+                                 f"{mpmath.nstr(diff, 5)} from the CPU's "
+                                 f"{cpu['optimal']}")
+        cpu_seconds = re.findall(r"outer_limits finished in ([0-9.]+)s",
+                                 log) or ["?"]
+        _ol_report(f"outer_limits {tag} (K = {k}, duality gap threshold "
+                   f"{gap}) on the card", run,
+                   f"the CPU process {cpu_seconds[-1]} s (waited "
+                   f"{waited:.1f} s more), |diff| from it "
+                   f"{mpmath.nstr(diff, 5)} (tolerance {tol})")
+        runs[f"outer_limits_{tag}"] = run["launches"]
+
+    proc = subprocess.run(
+        [py, "-m", "sdpb_tpu_torch.apps.outer_limits",
+         *_ol_argv(work, "quickstart", 3000, "card_3000")], cwd=str(REPO),
+        env=_port_env(), capture_output=True, text=True, timeout=300)
+    if proc.returncode != 2 or "prime pool" not in proc.stderr or \
+            "largest precision it takes is" not in proc.stderr:
+        raise AssertionError(f"outer_limits --precision 3000 exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    print(f"outer_limits --precision 3000 on the card: exit 2, "
+          f"{proc.stderr.strip()}", flush=True)
+    phase("9 outer_limits", t)
+    return runs
+
+
 def check_memory_estimates(cells):
     """A fail-fast check that predicts too little guards nothing."""
     for cell in cells:
@@ -2001,6 +2398,7 @@ def main(argv=None) -> int:
     card = phase_env()
     phase_build()
     cpu_jobs = start_cpu_approx(out_root)
+    ol_jobs = start_cpu_outer_limits(out_root)
     try:
         rows = phase_kernels(dev)
         paths = {"1d": phase_1d(dev, out_root)}
@@ -2009,8 +2407,9 @@ def main(argv=None) -> int:
         paths["n_1024"], large_mem = phase_large(dev)
         exp_paths, exp_mem = phase_expansion(dev, out_root, full_mem,
                                              cpu_jobs)
+        phase_outer_limits(dev, out_root, ol_jobs)
     finally:
-        for proc in cpu_jobs[1].values():
+        for proc in [*cpu_jobs[1].values(), *ol_jobs[1].values()]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()

@@ -1,10 +1,12 @@
 """Host-side conversions between MP arrays and decimal strings.
 
 The reference reads and writes every number as a full-precision decimal
-string.  Decimals are parsed with mpmath into float64 word expansions
-(exact greedy splitting): the expansion format takes them as they
-are, and ``mp/limb.from_words_np`` converts them exactly into limbs.
-Both formats print through their exact mpmath value.
+string.  Decimals are parsed into float64 word expansions (exact greedy
+splitting): the expansion format takes them as they are, and
+``mp/limb.from_words_np`` converts them exactly into limbs.  Parsing and
+the printing of expansions go through the native codec
+(``io/native_codec.py``) when it is built, else through mpmath, which
+gives the same words; limbs print through their exact mpmath value.
 """
 
 from __future__ import annotations
@@ -13,6 +15,13 @@ import mpmath
 import numpy as np
 
 _GUARD_BITS = 40
+
+
+def _native():
+    """The native codec when it is built; None -> the mpmath path."""
+    from ..io import native_codec
+
+    return native_codec if native_codec.available() else None
 
 
 def _ctx(k: int) -> mpmath.MPContext:
@@ -34,6 +43,9 @@ def from_mpf(x, k: int) -> np.ndarray:
 
 
 def from_decimal(s: str, k: int) -> np.ndarray:
+    nat = _native()
+    if nat is not None:
+        return nat.dec2words(s, k)
     ctx = _ctx(k)
     return from_mpf(ctx.mpf(s.strip()), k)
 
@@ -41,6 +53,10 @@ def from_decimal(s: str, k: int) -> np.ndarray:
 def array_from_decimal(strings, k: int) -> np.ndarray:
     """from_decimal over a nested list of strings -> (..., k) words."""
     arr = np.asarray(strings, dtype=object)
+    nat = _native()
+    if nat is not None:
+        out = nat.dec2words_batch([str(s) for s in arr.reshape(-1)], k)
+        return out.reshape(arr.shape + (k,))
     out = np.zeros(arr.shape + (k,), dtype=np.float64)
     flat_out = out.reshape(-1, k)
     for i, s in enumerate(arr.reshape(-1)):
@@ -79,6 +95,11 @@ def to_decimal(words, digits: int | None = None) -> str:
         return ctx.nstr(limb.to_mpf(words), digits, strip_zeros=True,
                         min_fixed=1, max_fixed=0)
     words = words.astype(np.float64)
+    nat = _native()
+    if nat is not None:
+        out = nat.words2dec(words, digits or 0)
+        if out is not None:
+            return out
     k = words.shape[-1]
     ctx = _ctx(k)
     if digits is None:

@@ -18,7 +18,12 @@ expansion entry), for:
 - "quickstart_1d_expansion": the 1d SDP at --precision 212 in the
   float64-expansion format (K = 4 words, sdpb_tpu's --device cpu),
   solved to termination, with the full primalObjective and the final
-  iterate's words (x, y, X, Y per block) as its solution.
+  iterate's words (x, y, X, Y per block) as its solution;
+- "outer_limits_quickstart": outer_limits on the quickstart PMP
+  (examples/quickstart.py) through pmp2functions -p 128, at --precision
+  128 from the points 0, 1, 4, thresholds 1e-10 and initial matrix
+  scales 1e1: the optimal and the weights y as the CLI prints them, and
+  the constraints of each generation.
 
 The card's machine has no JAX, so chip_smoke.py compares the port's
 1d runs against this file; tests/test_torch_solver_synthetic.py and
@@ -125,9 +130,75 @@ def quickstart_1d_expansion():
                 **rec)
 
 
+# outer_limits_quickstart's options (the CLI's flags)
+OUTER_LIMITS_QUICKSTART = dict(
+    precision=128, points=[["0", "1", "4"]], dualityGapThreshold="1e-10",
+    primalErrorThreshold="1e-10", dualErrorThreshold="1e-10",
+    initialMatrixScalePrimal="1e1", initialMatrixScaleDual="1e1")
+
+
+def outer_limits_quickstart():
+    import contextlib
+    import io
+    import math
+    import tempfile
+
+    from sdpb_tpu.apps import outer_limits as ol
+    from sdpb_tpu.apps.pmp2functions import pmp_to_functions
+    from sdpb_tpu.io import pmp_writer
+    from sdpb_tpu.pmp.core import make_ctx
+    from sdpb_tpu.pmp.read import read_pmp
+
+    opts = OUTER_LIMITS_QUICKSTART
+    prec = opts["precision"]
+    ctx = make_ctx(prec)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        # examples/quickstart.py:33-44
+        pmp_writer.write_pmp_json(
+            tmp / "pmp.json", objective=[0, -1], normalization=[1, 0],
+            matrices=[pmp_writer.PositiveMatrixWithPrefactor(
+                prefactor=pmp_writer.DampedRational(
+                    constant=1, base="0.36787944117144233", poles=[]),
+                polynomials=[[[[1, 0, 0, 0, 1], [0, 0, 1, 0, "1/12"]]]])])
+        (tmp / "functions.json").write_text(json.dumps(
+            pmp_to_functions(read_pmp(tmp / "pmp.json", ctx), ctx),
+            indent=2))
+        (tmp / "points.json").write_text(json.dumps(
+            {"points": opts["points"]}))
+        objectives, normalization, functions = ol.read_function_blocks(
+            tmp / "functions.json", ctx)
+        points = ol.read_points(tmp / "points.json", ctx)
+        params = SolverParams(
+            precision=prec,
+            duality_gap_threshold=opts["dualityGapThreshold"],
+            primal_error_threshold=opts["primalErrorThreshold"],
+            dual_error_threshold=opts["dualErrorThreshold"],
+            initial_matrix_scale_primal=opts["initialMatrixScalePrimal"],
+            initial_matrix_scale_dual=opts["initialMatrixScaleDual"])
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            weights = ol.compute_optimal(
+                functions, points, objectives, normalization, params, ctx,
+                duality_gap_reduction=ctx.mpf(1024),
+                mesh_threshold=ctx.mpf("0.001"), verbosity=1)
+    digits = int(math.ceil(ctx.prec * 0.30103)) + 1
+    fmt = lambda v: ctx.nstr(v, digits, strip_zeros=True, min_fixed=1,
+                             max_fixed=0)
+    lines = log.getvalue().splitlines()
+    return dict(
+        options=opts,
+        optimal=fmt(sum(o * w for o, w in zip(objectives, weights))),
+        y=[fmt(w) for w in weights],
+        constraints=[int(x.split()[1]) for x in lines
+                     if x.startswith("num_constraints:")],
+        solves=sum(x.startswith("Threshold:") for x in lines))
+
+
 ENTRIES = {"quickstart_1d": quickstart_1d,
            "synthetic_shrunk": synthetic_shrunk,
-           "quickstart_1d_expansion": quickstart_1d_expansion}
+           "quickstart_1d_expansion": quickstart_1d_expansion,
+           "outer_limits_quickstart": outer_limits_quickstart}
 
 
 def main(names):

@@ -16,7 +16,11 @@ from torch_port_util import one_torch_thread  # noqa: F401,E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "sdpb_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "compare_column_loops.py"]
+# the port's native sources: none may name the JAX package's library
+PORT_SOURCES = sorted(
+    p for p in (ROOT / "sdpb_tpu_torch" / "csrc").iterdir()
+    if p.suffix in (".cpp", ".cu", ".cuh"))
 SDP_1D = ROOT / "sdpb_tpu_torch" / "data" / "quickstart_1d_sdp"
 
 
@@ -37,6 +41,18 @@ def test_no_jax_or_reference_package_imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "sdpb_tpu"), (path, name)
     assert "libsdpb_tpu" not in path.read_text(), path
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_native_sources_are_the_ports_own(path):
+    assert "libsdpb_tpu" not in path.read_text(), path
+
+
+def test_port_sources_cover_the_codec_and_the_root_scripts():
+    names = {p.name for p in PORT_SOURCES}
+    assert "codec.cpp" in names and "expansion_chol.cu" in names
+    assert ROOT / "compare_column_loops.py" in PORT_FILES
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
@@ -90,3 +106,51 @@ def test_kernel_wrappers_refuse_other_devices():
     for fn in (ek.exp_add, ek.exp_mul, ek.exp_div):
         with pytest.raises(ValueError):
             fn(e, e)
+
+
+def _outer_limits_argv(tmp_path, precision):
+    from sdpb_tpu_torch.apps import pmp2functions
+    from sdpb_tpu_torch.io import pmp_writer
+
+    pmp_writer.write_pmp_json(
+        tmp_path / "pmp.json", objective=[0, -1], normalization=[1, 0],
+        matrices=[pmp_writer.PositiveMatrixWithPrefactor(
+            prefactor=pmp_writer.DampedRational(
+                constant=1, base="0.36787944117144233", poles=[]),
+            polynomials=[[[[1, 0, 0, 0, 1], [0, 0, 1, 0, "1/12"]]]])])
+    assert pmp2functions.main(["-p", "128", "-i", str(tmp_path / "pmp.json"),
+                               "-o", str(tmp_path / "f.json"),
+                               "-v", "0"]) == 0
+    (tmp_path / "points.json").write_text('{"points": [["0", "1", "4"]]}')
+    return ["--functions", str(tmp_path / "f.json"), "--points",
+            str(tmp_path / "points.json"), "--precision", str(precision),
+            "-o", str(tmp_path / "out.json")]
+
+
+def test_tools_need_a_card_where_they_touch_one(tmp_path, monkeypatch):
+    """outer_limits solves on the card and raises without one (unless
+    told "cpu"); pmp2functions and spectrum are host tools and run
+    without a card (test_torch_spectrum.py::test_host_only)."""
+    from sdpb_tpu_torch.apps import outer_limits
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = _outer_limits_argv(tmp_path, 128)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        outer_limits.main(argv)
+    assert not (tmp_path / "out.json").exists()
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_outer_limits_exits_2_above_the_prime_pool(tmp_path, monkeypatch,
+                                                   capsys, device):
+    """--precision 3000 exits 2 at startup naming the prime pool's limit,
+    on either device, before anything touches the card (on "cuda" no
+    card is present here: the check comes first)."""
+    from sdpb_tpu_torch.apps import outer_limits
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert outer_limits.main(_outer_limits_argv(tmp_path, 3000),
+                             device=device) == 2
+    err = capsys.readouterr().err
+    assert "prime pool" in err and "largest precision it takes is" in err
+    assert not (tmp_path / "out.json").exists()
