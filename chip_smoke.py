@@ -94,6 +94,18 @@ Phases, each printing its name and elapsed seconds:
      full width 1e-24); --precision 3000 exiting 2
      naming the prime pool's limit.  Each run's seconds, generations,
      solves and expansion launches by caller
+ 10. several ranks on the one card (parallel/): (a) the 1d SDP through
+     the sdpb CLI as two ranks sharing the card over gloo, started by
+     parallel/multihost.py's launch_local as sdpb does with several
+     GPUs, PrimalDualOptimal within 1e-30 of phase 4's objectives; (b)
+     two full-width iterations through parallel/mesh.py as a world of
+     one over NCCL, the first within 1e-30 of phase 5's, s/iteration
+     beside phase 5's; (c) on two ranks sharing the card, the row-panel
+     Cholesky of a full-width Q (N = 384) and its solve (dist_q), the
+     intra-block Cholesky of a 240-row block and the exact SYRK over its
+     rows (intra), against the dense routes (1e-100 relative, the SYRK
+     bit for bit).  The backend, the rank count, the times, and each
+     rank's limb-kernel launches (both kernels on every rank)
 
 The line before the last is one JSON object with a record per kernel
 and design (``exp_mul`` a value a thread, ``exp_mul_warp`` a value a
@@ -1139,7 +1151,8 @@ def phase_full(dev, iterations=1):
     return launches, {"N": problem.dual_dim, "peak": peak,
                       "estimate": estimate,
                       "first": result.iterations[0],
-                      "direction": direction}
+                      "direction": direction,
+                      "s_per_it": seconds / n_it}
 
 
 # Device kernels by what launched them: the port's own CUDA kernels, the
@@ -1178,14 +1191,16 @@ def _profile_iteration(problem, state, s_per_it, params, label):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         driver.solve(problem, params, state=state)
         torch.cuda.synchronize()
+    # the trace's raw events summed by name: key_averages() builds a
+    # Python object tree over every event first, minutes for the ~10^6
+    # events of an iteration, where this loop takes about a second
     device_ms, calls = {}, {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
             continue
-        us = ev.self_device_time_total if hasattr(
-            ev, "self_device_time_total") else ev.self_cuda_time_total
-        device_ms[ev.key] = us / 1e3
-        calls[ev.key] = ev.count
+        key = ev.name()
+        device_ms[key] = device_ms.get(key, 0.0) + ev.duration_ns() / 1e6
+        calls[key] = calls.get(key, 0) + 1
     total = sum(device_ms.values())
     classes = {}
     for key, ms in device_ms.items():
@@ -2314,6 +2329,241 @@ def phase_outer_limits(dev, out_root: Path, cpu_jobs):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: several ranks on the one card (parallel/)
+# ---------------------------------------------------------------------------
+
+# Phase 10c's shapes: the full-width Q (N = 384) by row panels, and the
+# full-width Schur block (240 rows) and a pairing-sized SYRK by rows, at
+# --precision 400 (S = 47)
+ROWPANEL_N, INTRA_N, INTRA_M, RANK_S = 384, 240, 64, 47
+# the row-panel factorization against the dense one (a reordered
+# blocking of 400-bit arithmetic on well-conditioned inputs)
+ROWPANEL_TOL = 1e-100
+
+
+def sdpb_rank_child(argv) -> int:
+    """Body of phase 10a's ranks (``python -m chip_smoke --sdpb-rank
+    <dir> <sdpb argv>``, started by parallel/multihost.py's
+    launch_local): the sdpb CLI joining the group from torchrun's
+    variables, its standard output in <dir>/rank<RANK>.log and its
+    limb-kernel launches in <dir>/launches.<RANK>.json."""
+    import contextlib
+
+    from sdpb_tpu_torch.apps import sdpb
+    from sdpb_tpu_torch.ops import limb_kernels as lk
+
+    work, rank = Path(argv[0]), os.environ["RANK"]
+    lk.reset_launches()
+    with open(work / f"rank{rank}.log", "w") as log, \
+            contextlib.redirect_stdout(log):
+        rc = sdpb.main(argv[1:])
+    (work / f"launches.{rank}.json").write_text(json.dumps(dict(lk.LAUNCHES)))
+    return rc
+
+
+def rowpanel_rank_child(argv) -> int:
+    """Body of phase 10c's ranks (``python -m chip_smoke --rowpanel-rank
+    <dir>``, started by launch_local): the row-panel Cholesky of a
+    full-width Q (parallel/dist_q.py) and its solve, the intra-block
+    Cholesky of a Schur-sized block and the exact SYRK over its rows
+    (parallel/intra.py), against the one-device la.cholesky, solve and
+    SYRK on the same card; rank 0 writes <dir>/rowpanel.json."""
+    import torch
+
+    from sdpb_tpu_torch.mp import limb
+    from sdpb_tpu_torch.mp import linalg as la
+    from sdpb_tpu_torch.ops import limb_kernels as lk
+    from sdpb_tpu_torch.ops import mpmm
+    from sdpb_tpu_torch.parallel import comm as comm_mod
+    from sdpb_tpu_torch.parallel import dist_q, intra, multihost
+
+    work = Path(argv[0])
+    comm = multihost.maybe_init_distributed()
+    try:
+        dev = comm.device
+        rng = np.random.default_rng(10)          # the same on every rank
+        q = spd_limbs(rng, 1, ROWPANEL_N, RANK_S, dev)[0]
+        rhs = torch.from_numpy(limb.from_words_np(
+            rng.standard_normal((ROWPANEL_N, 1)), RANK_S)).to(dev)
+        blk = spd_limbs(rng, 1, INTRA_N, RANK_S, dev)[0]
+        x = torch.from_numpy(limb.from_words_np(
+            rng.standard_normal((INTRA_N, INTRA_M, 1)), RANK_S)).to(dev)
+        out = {"backend": comm.backend, "ranks": comm.world}
+
+        def timed(fn, together=True):
+            if together:
+                comm.barrier()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            val = fn()
+            torch.cuda.synchronize()
+            return val, time.time() - t0
+
+        lk.reset_launches()
+        l_loc, out["dist_q_cholesky_s"] = timed(
+            lambda: dist_q.cholesky_rowpanel(comm, intra.shard_rows(comm, q)))
+        sol, out["dist_q_solve_s"] = timed(
+            lambda: dist_q.dist_cholesky_solve(comm, l_loc, rhs, ROWPANEL_N))
+        b_loc, out["intra_cholesky_s"] = timed(
+            lambda: intra.cholesky(comm, intra.shard_rows(comm, blk)))
+        sy, out["intra_syrk_s"] = timed(
+            lambda: intra.syrk(comm, intra.shard_rows(comm, x)))
+        launches = dict(lk.LAUNCHES)
+        l_full = intra.gather_rows(comm, l_loc)
+        b_full = intra.gather_rows(comm, b_loc)
+        names = sorted(launches)
+        every = comm.all_gather(torch.tensor(
+            [launches[n] for n in names], dtype=torch.int64, device=dev))
+        if comm.is_root:
+            l_ref, out["dense_q_cholesky_s"] = timed(
+                lambda: la.cholesky(q), together=False)
+            out["dist_q_cholesky_err"] = abs_rel_err(l_full, l_ref)[1]
+            out["dist_q_solve_err"] = abs_rel_err(
+                sol, la.cholesky_solve(l_ref, rhs))[1]
+            out["intra_cholesky_err"] = abs_rel_err(b_full,
+                                                    la.cholesky(blk))[1]
+            plan = mpmm.plan_for(mpmm.precision_of(x.dtype, RANK_S), INTRA_N)
+            out["intra_syrk_same_bits"] = same_bits(
+                sy, mpmm.syrk_mp_batched(x, plan))
+            out["launches_by_rank"] = [dict(zip(names, row))
+                                       for row in every.cpu().tolist()]
+            (work / "rowpanel.json").write_text(json.dumps(out))
+    finally:
+        comm_mod.destroy(comm)
+    return 0
+
+
+def _launch_ranks(argv, n=2):
+    """``python -m chip_smoke <argv>`` as n ranks on this card through
+    parallel/multihost.py's launch_local (torchrun's variables; more
+    ranks than cards, so gloo); its exit code and seconds."""
+    from sdpb_tpu_torch.parallel import multihost
+
+    os.environ["PYTHONPATH"] = (str(REPO) + os.pathsep
+                                + os.environ.get("PYTHONPATH", ""))
+    t0 = time.time()
+    rc = multihost.launch_local("chip_smoke", argv, n)
+    return rc, time.time() - t0
+
+
+def _require_rank_launches(label, by_rank):
+    for rank, launches in enumerate(by_rank):
+        for name in ("cholesky_unblocked_batched", "solve_unblocked_batched"):
+            if launches.get(name, 0) <= 0:
+                raise AssertionError(f"{label}: rank {rank} never launched "
+                                     f"{name}: {launches}")
+
+
+def phase_ranks(dev, out_root: Path, full):
+    """Phase 10: (a) the 1d SDP through the sdpb CLI as two ranks sharing
+    the card over gloo, against phase 4's one-device solve; (b) two
+    full-width iterations through parallel/mesh.py as a world of one
+    over NCCL, against phase 5's; (c) the row-panel (dist_q) and
+    intra-block factorizations on two ranks sharing the card, against
+    the dense ones.  Every rank must launch both limb kernels."""
+    t = time.time()
+    import mpmath
+    import torch
+
+    from sdpb_tpu_torch.ops import limb_kernels as lk
+    from sdpb_tpu_torch.parallel import comm as comm_mod
+    from sdpb_tpu_torch.parallel import mesh, multihost
+    from sdpb_tpu_torch.solver import driver, synthetic
+    from sdpb_tpu_torch.solver.params import SolverParams
+
+    work = out_root / "ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    paths = {}
+
+    # (a)
+    sdp = REPO / "sdpb_tpu_torch" / "data" / "quickstart_1d_sdp"
+    rc, cli_s = _launch_ranks(
+        ["--sdpb-rank", str(work), "-s", str(sdp), "-o", str(work / "out"),
+         "-c", str(work / "ck"), "--precision", "212",
+         "--noFinalCheckpoint"])
+    if rc != 0:
+        raise AssertionError(f"sdpb over 2 ranks exited {rc}: "
+                             f"{(work / 'rank0.log').read_text()[-2000:]}")
+    log0 = (work / "rank0.log").read_text().splitlines()
+    backend = next(x for x in log0 if "rank(s) over" in x)
+    fields, dev_obj = _check_1d_out(work / "out")
+    one = {}
+    for line in (out_root / "quickstart_out" / "out.txt").read_text() \
+            .splitlines():
+        key, _, val = line.partition("=")
+        one[key.strip()] = val.strip().rstrip(";")
+    mpmath.mp.prec = 400
+    gap = max(abs(mpmath.mpf(fields[f]) - mpmath.mpf(one[f]))
+              for f in ("primalObjective", "dualObjective", "dualityGap"))
+    if gap > mpmath.mpf("1e-30"):
+        raise AssertionError(f"2 ranks off phase 4's solve by {gap}")
+    by_rank = [json.loads((work / f"launches.{r}.json").read_text())
+               for r in range(2)]
+    _require_rank_launches("10a", by_rank)
+    n_it = len(json.loads((work / "out" / "iterations.json").read_text()))
+    print(f"10a sdpb CLI, {backend.strip()}: {fields['terminateReason']} "
+          f"in {n_it} iterations, {cli_s:.1f} s wall (processes "
+          f"included), objectives within {float(gap):.3e} of phase 4's, "
+          f"launches by rank {by_rank}", flush=True)
+    for r, launches in enumerate(by_rank):
+        paths[f"ranks_cli_rank{r}"] = launches
+
+    # (b)
+    comm = comm_mod.init_process_group(
+        0, 1, dev, f"file://{work / 'nccl_store'}", "nccl")
+    try:
+        params = SolverParams(precision=400, max_iterations=2)
+        host, _ = synthetic.build_problem(params, device="cpu")
+        mproblem = mesh.shard_problem(host, comm)
+        lk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        result = driver.solve(mproblem, params)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches = dict(lk.LAUNCHES)
+    finally:
+        comm_mod.destroy(comm)
+    if len(result.iterations) != 2:
+        raise AssertionError(f"10b ran {len(result.iterations)} iterations")
+    _require_rank_launches("10b", [launches])
+    first, want = result.iterations[0], full["first"]
+    off = max(_rel(getattr(first, f), getattr(want, f))
+              for f in ("mu", "primal_objective", "dual_objective",
+                        "duality_gap", "beta_corrector"))
+    if not off <= 1e-30:
+        raise AssertionError(f"10b's first iteration off phase 5's by {off}")
+    print(f"10b mesh, world of 1 over {comm.backend}: 2 full-width "
+          f"iterations in {seconds:.2f} s "
+          f"({[round(r.iter_time, 3) for r in result.iterations]} s each; "
+          f"phase 5 {full['s_per_it']:.2f} s/iteration), first iteration "
+          f"within {off:.3e} of phase 5's, launches {launches}", flush=True)
+    paths["ranks_mesh_nccl"] = launches
+
+    # (c)
+    rc, rp_s = _launch_ranks(["--rowpanel-rank", str(work)])
+    if rc != 0:
+        raise AssertionError(f"the row-panel ranks exited {rc}")
+    rp = json.loads((work / "rowpanel.json").read_text())
+    _require_rank_launches("10c", rp["launches_by_rank"])
+    bad = {k: rp[k] for k in ("dist_q_cholesky_err", "dist_q_solve_err",
+                              "intra_cholesky_err")
+           if not rp[k] <= ROWPANEL_TOL}
+    if bad or not rp["intra_syrk_same_bits"]:
+        raise AssertionError(f"10c against the dense routes: {bad}, SYRK "
+                             f"bits {rp['intra_syrk_same_bits']}")
+    print(f"10c row panels over {rp['ranks']} ranks ({rp['backend']}), "
+          f"{rp_s:.1f} s wall: " + json.dumps(
+              {k: v for k, v in rp.items() if k != "launches_by_rank"}),
+          flush=True)
+    for r, launches in enumerate(rp["launches_by_rank"]):
+        paths[f"ranks_rowpanel_rank{r}"] = launches
+    phase("10 several ranks", t)
+    return paths
+
+
 def check_memory_estimates(cells):
     """A fail-fast check that predicts too little guards nothing."""
     for cell in cells:
@@ -2408,6 +2658,7 @@ def main(argv=None) -> int:
         exp_paths, exp_mem = phase_expansion(dev, out_root, full_mem,
                                              cpu_jobs)
         phase_outer_limits(dev, out_root, ol_jobs)
+        paths.update(phase_ranks(dev, out_root, full_mem))
     finally:
         for proc in [*cpu_jobs[1].values(), *ol_jobs[1].values()]:
             if proc.poll() is None:
@@ -2424,4 +2675,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sdpb-rank"]:
+        sys.exit(sdpb_rank_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--rowpanel-rank"]:
+        sys.exit(rowpanel_rank_child(sys.argv[2:]))
     sys.exit(main())

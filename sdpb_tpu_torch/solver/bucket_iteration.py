@@ -8,6 +8,14 @@ corrector -> step lengths and update).  The only cross-bucket objects
 are reductions: c.x, B^T x, the Q residues (summed as exact integers
 before one CRT restore), the dy right-hand side, trace(XY), the
 Frobenius products and the error maxima.
+
+The same phases run a block-sharded problem (``parallel/mesh.py``'s
+MeshProblem): each rank runs them on its own blocks, a bucket's mask
+zeroes its phantom blocks where they would reach a reduction, and each
+cross-bucket reduction crosses the ranks first (``problem.comm``): the
+Q residues as an exact int32 all-reduce, the small MP sums gathered and
+tree-summed in rank order, the error maxima all-reduced.  On one device
+(``comm`` None) the collectives are left out.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ import torch
 
 from ..mp import core as mp
 from ..mp import linalg as la
+from ..parallel.comm import Comm
 from . import iteration as it
 from .data import BucketedProblem, BucketedState
 
@@ -59,21 +68,58 @@ def _max_abs_approx(a):
     return mp.approx(a).abs().amax()
 
 
+def _comm(problem) -> Comm:
+    """The ranks the problem's blocks are spread over (a world of one
+    on one device, whose collectives are the identity)."""
+    return problem.comm or Comm.local(problem.device)
+
+
+def _mask(problem, bi: int):
+    """Bucket ``bi``'s mask of real blocks (None: every block real)."""
+    return None if problem.masks is None else problem.masks[bi]
+
+
+def _masked(v, mask):
+    return v if mask is None else mask_blocks(v, mask)
+
+
+def _sum_over_ranks(comm: Comm, parts):
+    """Each of the same-shape MP values ``parts`` summed over the ranks
+    in one gather: a tree sum in rank order, exact as a local sum (a
+    word-wise all-reduce of MP words is not)."""
+    if comm.world == 1:
+        return parts
+    return list(mp.sum_(comm.all_gather(torch.stack(parts)),
+                        axis=0).unbind(0))
+
+
+def _max_over_ranks(comm: Comm, vals):
+    """The largest of every rank's float scalars ``vals``, all-reduced
+    as float64 (exact for float32), in the dtype of the first."""
+    if not comm.active:
+        return vals
+    t = comm.max_(torch.stack([v.to(torch.float64).reshape(())
+                               for v in vals]))
+    return [t[i].to(vals[0].dtype) for i in range(len(vals))]
+
+
 # ---------------------------------------------------------------------------
 # Phase 1: residues
 # ---------------------------------------------------------------------------
 
-def _residues_bucket(bk, x, X, Y, y):
+def _residues_bucket(bk, x, X, Y, y, mask=None):
     pars = it.parities(bk.shape)
     L_X = tuple(la.cholesky(X[p]) if p in pars else X[p] for p in range(2))
     L_Y = tuple(la.cholesky(Y[p]) if p in pars else Y[p] for p in range(2))
     ax, ay = it.pairings(bk, L_X, Y)
     dual_res = it.dual_residues(bk, ay, y)
-    derr = _max_abs_approx(dual_res)
+    derr = _max_abs_approx(_masked(dual_res, mask))
     w = it.weighted_sum(bk, x)
     primal_res = tuple(mp.sub(w[p], X[p]) if p in pars else w[p]
                        for p in range(2))
-    perr = torch.stack([_max_abs_approx(primal_res[p]) for p in pars]).amax()
+    perr = torch.stack([_max_abs_approx(_masked(primal_res[p], mask))
+                        for p in pars]).amax()
+    # a phantom block has c = B = 0
     cx = mp.sum_(mp.dot(bk.c, x, axis=-1), axis=0)
     bx = mp.sum_(la.matvec(bk.B, x, transpose=True, vdims=1), axis=0)
     return L_X, L_Y, ax, ay, dual_res, primal_res, derr, perr, cx, bx
@@ -81,20 +127,34 @@ def _residues_bucket(bk, x, X, Y, y):
 
 def compute_residues(problem: BucketedProblem,
                      state: BucketedState) -> Residues:
+    comm = _comm(problem)
     parts = [_residues_bucket(bk, state.x[bi], state.X[bi], state.Y[bi],
-                              state.y)
+                              state.y, _mask(problem, bi))
              for bi, bk in enumerate(problem.buckets)]
+    sums = _sum_over_ranks(comm, [torch.cat([p[8][None], p[9]])
+                                  for p in parts])
+    cx, bx = sums[0][0], sums[0][1:]
+    for s in sums[1:]:
+        cx, bx = mp.add(cx, s[0]), mp.add(bx, s[1:])
+    derr, perr = _max_over_ranks(comm, [
+        torch.stack([p[6] for p in parts]).amax(),
+        torch.stack([p[7] for p in parts]).amax()])
+    return combine_residues(
+        problem, state.y, cx, bx, derr, perr,
+        [p[0] for p in parts], [p[1] for p in parts],
+        [p[2] for p in parts], [p[3] for p in parts],
+        [p[4] for p in parts], [p[5] for p in parts])
+
+
+def combine_residues(problem, y, cx, bx, derr, perr, L_X, L_Y, ax, ay,
+                     dual_res, primal_res) -> Residues:
+    """Objectives, gap and errors from the summed c.x and B^T x and the
+    largest dual and primal residues (float scalars)."""
     k, dt = problem.k, problem.dtype
     one = _const(mp.one_np(k, dt), problem.b)
-    cx = parts[0][8]
-    for p in parts[1:]:
-        cx = mp.add(cx, p[8])
-    bx = parts[0][9]
-    for p in parts[1:]:
-        bx = mp.add(bx, p[9])
     primal_objective = mp.add(problem.objective_const, cx)
     dual_objective = mp.add(problem.objective_const,
-                            mp.dot(problem.b, state.y, axis=0))
+                            mp.dot(problem.b, y, axis=0))
     gap_num = mp.abs_(mp.sub(primal_objective, dual_objective))
     gap_den = mp.max_(mp.add(mp.abs_(primal_objective),
                              mp.abs_(dual_objective)), one)
@@ -103,12 +163,8 @@ def compute_residues(problem: BucketedProblem,
     to_mp = lambda v: mp.const_word(v, k, dt)
     return Residues(
         primal_objective, dual_objective, duality_gap,
-        to_mp(torch.stack([p[6] for p in parts]).amax()),
-        to_mp(torch.stack([p[7] for p in parts]).amax()),
-        to_mp(_max_abs_approx(primal_res_p)),
-        [p[0] for p in parts], [p[1] for p in parts],
-        [p[2] for p in parts], [p[3] for p in parts],
-        [p[4] for p in parts], [p[5] for p in parts], primal_res_p)
+        to_mp(derr), to_mp(perr), to_mp(_max_abs_approx(primal_res_p)),
+        L_X, L_Y, ax, ay, dual_res, primal_res, primal_res_p)
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +186,10 @@ def _schur_chol_bucket(bk, ax, ay):
 def q_plan(problem: BucketedProblem):
     from ..ops import mpmm
 
-    total_rows = sum(bk.nb * bk.shape.schur_size for bk in problem.buckets)
+    # over the real blocks (a phantom's rows are zero), so that a sharded
+    # Q comes out bit for bit the one-device Q
+    total_rows = sum(n * bk.shape.schur_size
+                     for n, bk in zip(problem.bucket_sizes, problem.buckets))
     return mpmm.plan_for(mpmm.precision_of(problem.dtype, problem.k),
                          total_rows)
 
@@ -165,33 +224,56 @@ def schur_factorize(problem: BucketedProblem, res: Residues,
                     max_q_bytes: int | None = None):
     from ..ops import mpmm
 
+    comm = _comm(problem)
     plan = q_plan(problem)
     chunk = q_block_chunk(problem, max_q_bytes)
-    L_S, LinvB = [], []
+    L_S, LinvB, lb_q = [], [], []
     e_col = finite = None
     for bi, bk in enumerate(problem.buckets):
         ls, lb = _schur_chol_bucket(bk, res.ax[bi], res.ay[bi])
         L_S.append(ls)
         LinvB.append(lb)
+        # a phantom has B = 0, so L^-1 B = 0; masked all the same, so
+        # that nothing of it reaches Q
+        lb = _masked(lb, _mask(problem, bi))
+        lb_q.append(lb)
         e = mpmm.exponents(lb).amax(dim=(0, 1))
         f = torch.isfinite(lb[..., 0].abs().amax())
         e_col = e if e_col is None else torch.maximum(e_col, e)
         finite = f if finite is None else finite & f
+    if comm.active:
+        e_col = comm.max_(e_col)
+        finite = comm.min_(finite.to(torch.int32)) > 0
     q_sum = d_sum = None
     for bi, bk in enumerate(problem.buckets):
         step = bk.nb if chunk is None else min(chunk, bk.nb)
         for j in range(0, bk.nb, step):
-            q_res, d_res = _q_residues(LinvB[bi][j:j + step], e_col, plan)
+            q_res, d_res = _q_residues(lb_q[bi][j:j + step], e_col, plan)
             if q_sum is None:
                 q_sum, d_sum = q_res, d_res
             else:
                 q_sum, d_sum = q_sum + q_res, d_sum + d_res
+    if comm.active:
+        from ..parallel import mesh
+
+        return L_S, LinvB, mesh.reduce_q_cholesky(problem, q_sum, d_sum,
+                                                  e_col, finite, plan)
+    return L_S, LinvB, restore_q_cholesky(q_sum, d_sum, e_col, finite,
+                                          plan, problem.k, problem.dtype)
+
+
+def restore_q_cholesky(q_sum, d_sum, e_col, finite, plan, k: int, dtype):
+    """Q from the summed per-prime residues, checked against the
+    independently summed diagonal (`compute_Q.cxx:66-92`), and its
+    Cholesky factor; NaN where an input was not finite."""
+    from ..ops import mpmm
+
     q_sum = mpmm.reduce_residues_mod(q_sum, plan)
-    Q = mpmm.restore_q_mp(q_sum, e_col, plan, problem.k, problem.dtype)
+    Q = mpmm.restore_q_mp(q_sum, e_col, plan, k, dtype)
     dg = torch.diagonal(q_sum, dim1=-2, dim2=-1)
     finite = finite & (dg == mpmm.reduce_residues_mod(d_sum, plan)).all()
     Q = torch.where(finite, Q, torch.nan)
-    return L_S, LinvB, la.cholesky(Q)
+    return la.cholesky(Q)
 
 
 # ---------------------------------------------------------------------------
@@ -201,9 +283,11 @@ def schur_factorize(problem: BucketedProblem, res: Residues,
 def compute_xy_mu(problem: BucketedProblem, state: BucketedState,
                   max_complementarity):
     k, dt, dev = problem.k, problem.dtype, problem.device
-    minus_XY, tr = [], None
+    comm = _comm(problem)
+    minus_XY, traces = [], []
     for bi, bk in enumerate(problem.buckets):
         pars = it.parities(bk.shape)
+        mask = _mask(problem, bi)
         mb = []
         t = mp.zeros((), k, dev, dt)
         for p in range(2):
@@ -212,17 +296,29 @@ def compute_xy_mu(problem: BucketedProblem, state: BucketedState,
                 continue
             mxy = mp.neg(la.matmul(state.X[bi][p], state.Y[bi][p]))
             mb.append(mxy)
-            t = mp.add(t, mp.sum_(la.trace(mxy), axis=0))
+            t = mp.add(t, mp.sum_(_masked(la.trace(mxy), mask), axis=0))
         minus_XY.append(tuple(mb))
-        tr = t if tr is None else mp.add(tr, t)
-    rows = torch.tensor(float(problem.total_psd_rows), dtype=dt, device=dev)
-    mu = mp.div(mp.neg(tr), mp.const_word(rows, k, dt))
-    terminate = mp.cmp_lt(_const(max_complementarity, tr), mu)
-    r_err = torch.stack([
-        _max_abs_approx(la.add_diag(minus_XY[bi][p], mu))
+        traces.append(t)
+    traces = _sum_over_ranks(comm, traces)
+    tr = traces[0]
+    for t in traces[1:]:
+        tr = mp.add(tr, t)
+    mu, terminate = mu_of_trace(problem, tr, max_complementarity)
+    r_err, = _max_over_ranks(comm, [torch.stack([
+        _max_abs_approx(_masked(la.add_diag(minus_XY[bi][p], mu),
+                                _mask(problem, bi)))
         for bi, bk in enumerate(problem.buckets)
-        for p in it.parities(bk.shape)]).amax()
+        for p in it.parities(bk.shape)]).amax()])
     return minus_XY, mu, mp.const_word(r_err, k, dt), terminate
+
+
+def mu_of_trace(problem, tr, max_complementarity):
+    """mu = -trace(XY) / (PSD rows) and the maxComplementarity flag."""
+    k, dt = problem.k, problem.dtype
+    rows = torch.tensor(float(problem.total_psd_rows), dtype=dt,
+                        device=tr.device)
+    mu = mp.div(mp.neg(tr), mp.const_word(rows, k, dt))
+    return mu, mp.cmp_lt(_const(max_complementarity, tr), mu)
 
 
 # ---------------------------------------------------------------------------
@@ -230,8 +326,9 @@ def compute_xy_mu(problem: BucketedProblem, state: BucketedState,
 # ---------------------------------------------------------------------------
 
 def _search_pre_bucket(bk, Y, L_X, primal_res, dual_res, minus_XY, L_S,
-                       LinvB, beta_mu, dXdY):
-    """Z, R, the L_S-forward-solved dx, and the dy-rhs contribution."""
+                       LinvB, beta_mu, dXdY, mask=None):
+    """Z, R, the L_S-forward-solved dx, and the dy-rhs contribution
+    (``mask`` zeroes the dx of a sharded bucket's phantom blocks)."""
     pars = it.parities(bk.shape)
     Rb, Zb = [], []
     for p in range(2):
@@ -246,6 +343,7 @@ def _search_pre_bucket(bk, Y, L_X, primal_res, dual_res, minus_XY, L_S,
         Zb.append(la.symmetrize(z))
     dx = it.schur_rhs(bk, dual_res, [Zb[p] for p in pars])
     dx = la.solve_lower(L_S, dx)
+    dx = _masked(dx, mask)
     dy_part = mp.sum_(la.matvec(LinvB, dx, transpose=True, vdims=1), axis=0)
     return tuple(Rb), dx, dy_part
 
@@ -275,24 +373,31 @@ def search_direction(problem: BucketedProblem, state: BucketedState,
                      dXdY):
     """One Newton solve (`compute_search_direction.cxx:44-96`); the
     predictor passes zero dXdY."""
-    R_list, dx_list, dy_rhs = [], [], res.primal_res_p
+    R_list, dx_list, dy_parts = [], [], []
     for bi, bk in enumerate(problem.buckets):
         R, dx, dy_part = _search_pre_bucket(
             bk, state.Y[bi], res.L_X[bi], res.primal_res[bi],
             res.dual_res[bi], minus_XY[bi], L_S[bi], LinvB[bi], beta_mu,
-            dXdY[bi])
+            dXdY[bi], _mask(problem, bi))
         R_list.append(R)
         dx_list.append(dx)
+        dy_parts.append(dy_part)
+    dy_rhs = res.primal_res_p
+    for dy_part in _sum_over_ranks(_comm(problem), dy_parts):
         dy_rhs = mp.sub(dy_rhs, dy_part)
-    dy = la.cholesky_solve(L_Q, dy_rhs)
+    if isinstance(L_Q, torch.Tensor):
+        dy = la.cholesky_solve(L_Q, dy_rhs)
+    else:
+        dy = L_Q.solve(dy_rhs)          # parallel/mesh.py's DistLQ
     dX, dY = [], []
     for bi, bk in enumerate(problem.buckets):
         dx, dXb, dYb = _search_post_bucket(
             bk, dx_list[bi], dy, L_S[bi], LinvB[bi], state.Y[bi],
             res.L_X[bi], res.primal_res[bi], R_list[bi])
-        dx_list[bi] = dx
-        dX.append(dXb)
-        dY.append(dYb)
+        mask = _mask(problem, bi)
+        dx_list[bi] = _masked(dx, mask)
+        dX.append(tuple(_masked(d, mask) for d in dXb))
+        dY.append(tuple(_masked(d, mask) for d in dYb))
     return dx_list, dX, dy, dY
 
 
@@ -316,14 +421,27 @@ def corrector_beta(problem: BucketedProblem, state: BucketedState, dX, dY,
                    infeasible_centering):
     """`corrector_centering_parameter.cxx:12-31`."""
     k, dt, dev = problem.k, problem.dtype, problem.device
-    frob = None
+    frobs = []
     for bi, bk in enumerate(problem.buckets):
         f = mp.zeros((), k, dev, dt)
         for p in it.parities(bk.shape):
             per = la.frobenius(mp.add(state.X[bi][p], dX[bi][p]),
                                mp.add(state.Y[bi][p], dY[bi][p]))
-            f = mp.add(f, mp.sum_(per, axis=0))
-        frob = f if frob is None else mp.add(frob, f)
+            f = mp.add(f, mp.sum_(_masked(per, _mask(problem, bi)),
+                                  axis=0))
+        frobs.append(f)
+    frobs = _sum_over_ranks(_comm(problem), frobs)
+    frob = frobs[0]
+    for f in frobs[1:]:
+        frob = mp.add(frob, f)
+    return beta_of_frobenius(problem, frob, mu, feasible,
+                             feasible_centering, infeasible_centering)
+
+
+def beta_of_frobenius(problem, frob, mu, feasible: bool,
+                      feasible_centering, infeasible_centering):
+    """The corrector's beta from the summed Tr((X+dX)(Y+dY))."""
+    k, dt, dev = problem.k, problem.dtype, frob.device
     rows = torch.tensor(float(problem.total_psd_rows), dtype=dt, device=dev)
     r = mp.div(frob, mp.mul_f64(mu, rows))
     one = mp.const_word(torch.tensor(1.0, dtype=dt, device=dev), k, dt)
@@ -337,22 +455,39 @@ def corrector_beta(problem: BucketedProblem, state: BucketedState, dX, dY,
 # Phase 2e: step lengths and update
 # ---------------------------------------------------------------------------
 
+def mask_blocks(v, mask):
+    """Zero the blocks of ``v`` (leading block axis) where ``mask`` is
+    0: a sharded bucket's phantom blocks."""
+    keep = (mask > 0).reshape(mask.shape + (1,) * (v.dim() - 1))
+    return torch.where(keep, v, torch.zeros((), dtype=v.dtype,
+                                            device=v.device))
+
+
 def _min_mp_over(lams):
     """MP min over the leading axis by monotonic-key argmin."""
     idx = torch.argmin(mp.lead(lams), dim=0)
     return torch.take_along_dim(lams, idx[None, ..., None], dim=0)[0]
 
 
-def _lambda_bucket(bk, L_X, dX, L_Y, dY):
+def _lambda_bucket(bk, L_X, dX, L_Y, dY, mask=None):
+    """The bucket's smallest eigenvalues of L^-1 dX L^-T and
+    L^-1 dY L^-T; ``mask`` leaves a sharded bucket's phantom blocks
+    out (an MP +inf in their place)."""
     k, dt = bk.c.shape[-1], bk.c.dtype
     inf = mp.const_word(torch.tensor(float("inf"), dtype=dt,
                                      device=bk.c.device), k, dt)
+
+    def least(lams):
+        if mask is not None:
+            lams = torch.where(mask[:, None] > 0, lams, inf.expand_as(lams))
+        return _min_mp_over(lams)
+
     lam_p, lam_d = inf, inf
     for p in it.parities(bk.shape):
         cp = la.lower_inverse_congruence(L_X[p], dX[p])
-        lam_p = it.min_mp(lam_p, _min_mp_over(it.min_eig_mp(cp)))
+        lam_p = it.min_mp(lam_p, least(it.min_eig_mp(cp)))
         cd = la.lower_inverse_congruence(L_Y[p], dY[p])
-        lam_d = it.min_mp(lam_d, _min_mp_over(it.min_eig_mp(cd)))
+        lam_d = it.min_mp(lam_d, least(it.min_eig_mp(cd)))
     return lam_p, lam_d
 
 
@@ -360,10 +495,15 @@ def apply_step(problem: BucketedProblem, state: BucketedState, res,
                dx, dX, dy, dY, feasible: bool, gamma: float):
     """Step lengths (`step_length.cxx`) and the update
     (`step.cxx:206-224`), in full MP."""
-    lams = [_lambda_bucket(bk, res.L_X[bi], dX[bi], res.L_Y[bi], dY[bi])
-            for bi, bk in enumerate(problem.buckets)]
-    lam_p = _min_mp_over(torch.stack([lp for lp, _ in lams]))
-    lam_d = _min_mp_over(torch.stack([ld for _, ld in lams]))
+    comm = _comm(problem)
+    lams = torch.stack([
+        torch.stack(_lambda_bucket(bk, res.L_X[bi], dX[bi], res.L_Y[bi],
+                                   dY[bi], _mask(problem, bi)))
+        for bi, bk in enumerate(problem.buckets)])      # (buckets, 2, K)
+    if comm.active:
+        lams = comm.all_gather(lams).flatten(0, 1)
+    lam_p = _min_mp_over(lams[:, 0])
+    lam_d = _min_mp_over(lams[:, 1])
     k = problem.k
     alpha_p = it.alpha_mp(lam_p, gamma, k)
     alpha_d = it.alpha_mp(lam_d, gamma, k)
@@ -383,22 +523,39 @@ def apply_step(problem: BucketedProblem, state: BucketedState, res,
     return new_state, mp.fst(alpha_p), mp.fst(alpha_d)
 
 
-def _conditions(problem, res, L_S, L_Q):
+#: the names of conditions()'s factors, by kind
+_FACTOR_NAMES = ("schur_complement_cholesky.block_{j}",
+                 "X_cholesky.block_{j}_0", "Y_cholesky.block_{j}_0",
+                 "X_cholesky.block_{j}_1", "Y_cholesky.block_{j}_1")
+
+
+def conditions(problem, res, L_S, L_Q):
     """Cholesky condition estimates ((max diag / min diag)^2): Q's, and
-    the largest block one with its name."""
-    q_cond = float(la.cholesky_condition_estimate(L_Q))
-    max_c, max_name = 0.0, ""
+    the largest block one with its name, over every rank."""
+    comm = _comm(problem)
+    if isinstance(L_Q, torch.Tensor):
+        q_cond = float(la.cholesky_condition_estimate(L_Q))
+    else:
+        q_cond = L_Q.condition()        # parallel/mesh.py's DistLQ
+    best = (0.0, -1.0, -1.0)            # (condition, kind, block)
     for bi, bk in enumerate(problem.buckets):
-        groups = [("schur_complement_cholesky.block_{j}", L_S[bi])]
+        groups = [(0, L_S[bi])]
         for p in it.parities(bk.shape):
-            groups.append((f"X_cholesky.block_{{j}}_{p}", res.L_X[bi][p]))
-            groups.append((f"Y_cholesky.block_{{j}}_{p}", res.L_Y[bi][p]))
-        for fmt, L in groups:
+            groups += [(1 + 2 * p, res.L_X[bi][p]),
+                       (2 + 2 * p, res.L_Y[bi][p])]
+        for kind, L in groups:
             conds = la.cholesky_condition_estimate(L).cpu().numpy()
             for pos, j in enumerate(bk.block_indices):
-                if conds[pos] > max_c:
-                    max_c, max_name = float(conds[pos]), fmt.format(j=j)
-    return q_cond, max_c, max_name
+                if j >= 0 and conds[pos] > best[0]:
+                    best = (float(conds[pos]), float(kind), float(j))
+    if comm.active:
+        every = comm.all_gather(torch.tensor(
+            best, dtype=torch.float64, device=comm.device)).cpu().numpy()
+        best = tuple(every[int(np.argmax(every[:, 0]))])
+    max_c, kind, j = best
+    if kind < 0:
+        return q_cond, 0.0, ""
+    return q_cond, float(max_c), _FACTOR_NAMES[int(kind)].format(j=int(j))
 
 
 def compute_step(problem: BucketedProblem, state: BucketedState,
@@ -434,7 +591,7 @@ def compute_step(problem: BucketedProblem, state: BucketedState,
         new_state, alpha_p, alpha_d = apply_step(
             problem, state, res, dx, dX, dy, dY, feasible,
             params.step_length_reduction)
-        q_cond, max_c, max_name = _conditions(problem, res, L_S, L_Q)
+        q_cond, max_c, max_name = conditions(problem, res, L_S, L_Q)
     info = StepInfo(mu=mu, beta_corrector=beta_corrector,
                     primal_step=alpha_p, dual_step=alpha_d,
                     R_error=R_error,

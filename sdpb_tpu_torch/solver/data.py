@@ -135,17 +135,29 @@ class BucketedProblem:
     b: torch.Tensor                 # (N, S)
     buckets: list
 
+    #: the ranks a block-sharded problem's blocks are spread over, and
+    #: each bucket's mask of real blocks (``parallel/mesh.py``'s
+    #: MeshProblem); None on one device
+    comm = None
+    masks = None
+
+    @property
+    def bucket_sizes(self) -> list:
+        """The real blocks of each bucket (over every rank)."""
+        return [bk.nb for bk in self.buckets]
+
     @property
     def dual_dim(self):
         return self.b.shape[0]
 
     @property
     def num_blocks(self):
-        return sum(bk.nb for bk in self.buckets)
+        return sum(self.bucket_sizes)
 
     @property
     def total_psd_rows(self):
-        return sum(bk.nb * sum(bk.shape.psd_sizes) for bk in self.buckets)
+        return sum(n * sum(bk.shape.psd_sizes)
+                   for n, bk in zip(self.bucket_sizes, self.buckets))
 
     @property
     def k(self) -> int:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..mp import decimal as mpdec
+from ..parallel.multihost import fetch as _np
 from . import bucket_iteration
 from .data import BucketedProblem, BucketedState, initial_bucketed_state
 from .params import SolverParams
@@ -74,10 +75,6 @@ class SolveResult:
     dual_error: str
 
 
-def _np(x):
-    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
-
-
 def _mpf_of(words, prec) -> mpmath.mpf:
     ctx = mpmath.mp.clone()
     ctx.prec = prec + 64
@@ -87,6 +84,12 @@ def _mpf_of(words, prec) -> mpmath.mpf:
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _elapsed(comm, start_time: float) -> float:
+    """Seconds since the start; the largest over the ranks."""
+    dt = time.time() - start_time
+    return comm.max_float(dt) if comm is not None else dt
 
 
 def check_format(problem: BucketedProblem, params: SolverParams) -> None:
@@ -111,13 +114,27 @@ def solve(problem: BucketedProblem, params: SolverParams,
           state: BucketedState | None = None, verbose: bool = False,
           iteration_hook=None, timers=None) -> SolveResult:
     """Run the interior-point loop to termination.  ``timers``
-    (utils.timers.Timers) records run.iter_<n>.{residues,step}."""
+    (utils.timers.Timers) records run.iter_<n>.{residues,step}.
+
+    ``problem`` is a BucketedProblem on one device, or a multi-device
+    one (``parallel.mesh.MeshProblem``, blocks sharded over the ranks;
+    ``parallel.intra_solver.IntraProblem``, every block's rows sharded
+    over them).  Then every rank runs this loop: each decision comes
+    from replicated or all-reduced values, so all ranks take the same
+    branch; ``y`` is checked to be the same on every rank once an
+    iteration; only rank 0 prints."""
     check_format(problem, params)
-    it_mod = bucket_iteration
+    from ..parallel import intra_solver
+
+    if isinstance(problem, intra_solver.IntraProblem):
+        it_mod, init = intra_solver, intra_solver.initial_state
+    else:
+        it_mod, init = bucket_iteration, initial_bucketed_state
+    comm = problem.comm
+    verbose = verbose and (comm is None or comm.is_root)
     if state is None:
-        state = initial_bucketed_state(
-            problem, float(params.initial_matrix_scale_primal),
-            float(params.initial_matrix_scale_dual))
+        state = init(problem, float(params.initial_matrix_scale_primal),
+                     float(params.initial_matrix_scale_dual))
     thr = params.thresholds_mpf()
     prec = params.precision
     start_time = time.time()
@@ -169,7 +186,7 @@ def solve(problem: BucketedProblem, params: SolverParams,
             reason = TerminateReason.PrimalFeasibleJumpDetected
         elif it > params.max_iterations:
             reason = TerminateReason.MaxIterationsExceeded
-        elif time.time() - start_time >= params.max_runtime:
+        elif _elapsed(comm, start_time) >= params.max_runtime:
             reason = TerminateReason.MaxRuntimeExceeded
         elif it > 1 and primal_step < float(thr["min_primal_step"]):
             reason = TerminateReason.PrimalStepTooSmall
@@ -184,6 +201,8 @@ def solve(problem: BucketedProblem, params: SolverParams,
             state, info = it_mod.compute_step(problem, state, res, params,
                                               feasible, timers=timers)
             _sync(dev)
+        if comm is not None:
+            comm.check_replicated(state.y, f"y at iteration {it}")
 
         if bool(_np(info.terminate_max_complementarity)):
             reason = TerminateReason.MaxComplementarityExceeded

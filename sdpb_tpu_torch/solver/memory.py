@@ -115,6 +115,10 @@ class ProblemShape:
     k: int
     dtype: torch.dtype = torch.float32
 
+    @property
+    def bucket_sizes(self) -> list:
+        return [bk.nb for bk in self.buckets]
+
 
 def shape_of_raw(raw, k: int, dtype=torch.float32) -> ProblemShape:
     """The bucket shapes of a RawSDP, before anything is on the device
@@ -229,15 +233,27 @@ def _plain_mul_bytes(k: int) -> int:
     return 8 * (8 * k * k + 3 * terms)
 
 
+def q_distributed(n: int, n_devices: int) -> bool:
+    """Whether the estimate counts Q as row panels (parallel/dist_q.py):
+    from parallel/mesh.py's DIST_Q_MIN_N up, on several devices."""
+    from ..parallel.mesh import DIST_Q_MIN_N
+
+    return n_devices > 1 and n >= DIST_Q_MIN_N
+
+
 def estimate_solver_memory(problem, q_bytes_cap: int | None = None,
-                           plain: bool = False) -> MemoryEstimate:
+                           plain: bool = False,
+                           n_devices: int = 1) -> MemoryEstimate:
     """Predict the peak allocation of one interior-point iteration of
-    the port on one device.
+    the port on one device of ``n_devices``.
 
     ``problem`` needs only shapes (a BucketedProblem, or
     ``shape_of_raw``'s ProblemShape).  ``q_bytes_cap`` is the
     --maxSharedMemory cap on the Q residue stage; ``plain`` counts the
-    plain elementwise route's temporaries (CPU tensors)."""
+    plain elementwise route's temporaries (CPU tensors).  On several
+    devices each bucket's blocks are divided over them, rounding up (the
+    phantom padding of ``parallel.mesh.shard_problem``), and Q, L_Q and
+    dy are replicated, or divided by rows where ``q_distributed``."""
     k = int(problem.k)
     n = int(problem.dual_dim)
     dt = core.torch_dtype(getattr(problem, "dtype", torch.float32))
@@ -250,7 +266,7 @@ def estimate_solver_memory(problem, q_bytes_cap: int | None = None,
     transients = {}
     total_rows = sum(bk.nb * bk.shape.schur_size for bk in problem.buckets)
     for bi, bk in enumerate(problem.buckets):
-        nb, sh = bk.nb, bk.shape
+        nb, sh = -(-bk.nb // n_devices), bk.shape
         psd = sum(s * s for s in sh.psd_sizes)
         schur = sh.schur_size
         mp_pts = sh.m * sh.pts
@@ -282,14 +298,32 @@ def estimate_solver_memory(problem, q_bytes_cap: int | None = None,
             transients[f"plain Schur complement terms (bucket {bi})"] = \
                 terms * (_plain_mul_bytes(k) + 3 * mp_item)
     comp["iterate x,X,Y,y and the next one"] += 2 * n * mp_item
-    comp["Q, L_Q, dy"] = (2 * n * n + 4 * n) * mp_item
+    q_own = -(-n // n_devices) if q_distributed(n, n_devices) else n
+    comp["Q, L_Q, dy"] = (2 * q_own * n + 4 * n) * mp_item
     if n > 2 * _PANEL:
         trail = n - _PANEL
+        rows = trail if q_own == n else q_own
         transients["CRT product Q Cholesky update"] = _product_bytes(
-            k, _PANEL, trail * _PANEL, 0, trail * trail, dt, syrk=True)
+            k, _PANEL, trail * _PANEL, 0, rows * trail, dt, syrk=True)
     worst = max(transients, key=transients.get)
     comp[worst] = transients[worst]
     return MemoryEstimate(components=comp, transients=transients)
+
+
+def intra_would_fit(problem, limit, n_devices: int) -> bool:
+    """Would sharding every block's rows over ``n_devices``
+    (parallel/intra_solver.py) bring the estimate under ``limit``?  The
+    intra path divides the persistent block-sized tensors by the device
+    count and keeps one full-size transient at a time: the one-device
+    estimate over n_devices plus its largest component.  The sdpb CLI
+    routes an over-limit problem there instead of exiting 1
+    (`Block_Map.hxx:8-14`)."""
+    limit = parse_bytes(limit) if limit else 0
+    if not limit or n_devices < 2:
+        return False
+    est = estimate_solver_memory(problem)
+    biggest = max(est.components.values()) if est.components else 0
+    return est.total // n_devices + biggest <= limit
 
 
 def detect_device_memory(device=None) -> int | None:
@@ -314,15 +348,16 @@ def detect_device_memory(device=None) -> int | None:
 
 def check_memory_limit(problem, limit=None, device=None,
                        verbose: bool = False,
-                       q_bytes_cap=None) -> MemoryEstimate:
+                       q_bytes_cap=None, n_devices: int = 1) -> MemoryEstimate:
     """Raise MemoryLimitError, with the per-component report, when the
-    estimate exceeds ``limit`` bytes.  ``limit`` 0/None: the
-    SDPB_TPU_DEVICE_MEMORY environment variable if set, else the
-    device's free memory; no limit known -> no check."""
+    estimate for one of ``n_devices`` devices exceeds ``limit`` bytes.
+    ``limit`` 0/None: the SDPB_TPU_DEVICE_MEMORY environment variable
+    if set, else the device's free memory; no limit known -> no
+    check."""
     plain = device is not None and torch.device(device).type == "cpu"
     est = estimate_solver_memory(problem,
                                  q_bytes_cap=parse_bytes(q_bytes_cap or 0),
-                                 plain=plain)
+                                 plain=plain, n_devices=n_devices)
     limit = parse_bytes(limit) if limit else 0
     if not limit:
         env = os.environ.get("SDPB_TPU_DEVICE_MEMORY")

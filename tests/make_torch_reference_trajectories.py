@@ -24,6 +24,17 @@ expansion entry), for:
   128 from the points 0, 1, 4, thresholds 1e-10 and initial matrix
   scales 1e1: the optimal and the weights y as the CLI prints them, and
   the constraints of each generation.
+- "mesh_quickstart_d2", "mesh_quickstart_d3": sdpb_tpu.parallel.mesh
+  on the first 2 and 3 virtual CPU devices, the 1d SDP in expansions at
+  K = 3, 6 iterations (its one block on device 0, phantoms elsewhere):
+  the records, the slot arrays and the final y and x words;
+- "mesh_blocks_d2", "mesh_blocks_d3", "mesh_blocks_d2_dist_q": the same
+  on the eight-block SDP of tests/torch_dist_util.py::blocks_sdp with
+  seeded costs (LPT placement), the last with DIST_Q_MIN_N lowered to 1
+  so that Q goes by row panels; 3 iterations;
+- "intra_quickstart_d2": sdpb_tpu.parallel.intra_solver on 2 virtual
+  CPU devices, the 1d SDP at K = 3, 4 iterations: the records and the
+  final y and X words.
 
 The card's machine has no JAX, so chip_smoke.py compares the port's
 1d runs against this file; tests/test_torch_solver_synthetic.py and
@@ -39,7 +50,12 @@ import json
 import pathlib
 import sys
 
-import jax
+import os
+
+os.environ.setdefault("XLA_FLAGS",
+                      "--xla_force_host_platform_device_count=8")
+
+import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
@@ -195,10 +211,98 @@ def outer_limits_quickstart():
         solves=sum(x.startswith("Threshold:") for x in lines))
 
 
+MESH_K = 3
+MESH_ITERATIONS = 6
+BLOCKS_ITERATIONS = 3
+INTRA_ITERATIONS = 4
+
+
+def _mesh_run(problem, n_dev, costs=None, dist_q_min_n=None,
+              iterations=MESH_ITERATIONS):
+    from jax.sharding import Mesh
+
+    from sdpb_tpu.parallel import mesh as j_mesh
+
+    devs = jax.devices("cpu")
+    assert len(devs) >= n_dev, devs
+    saved = j_mesh.DIST_Q_MIN_N
+    if dist_q_min_n is not None:
+        j_mesh.DIST_Q_MIN_N = dist_q_min_n
+    try:
+        jm = Mesh(np.array(devs[:n_dev]), (j_mesh.AXIS,))
+        mproblem = j_mesh.shard_problem(problem, jm, costs=costs)
+        params = SolverParams(precision=MESH_K * 53,
+                              max_iterations=iterations)
+        result = solve(mproblem, params)
+        state = j_mesh.unshard_state(result.state, mproblem)
+    finally:
+        j_mesh.DIST_Q_MIN_N = saved
+    return dict(devices=n_dev, precision=MESH_K * 53,
+                slots=[np.asarray(s).tolist() for s in mproblem.perms],
+                y=_words(state.y), x=[_words(x) for x in state.x],
+                **_record(result, digits=60))
+
+
+def _quickstart_expansion(k):
+    raw = read_sdp(ROOT / "sdpb_tpu_torch" / "data" / "quickstart_1d_sdp",
+                   k=k)
+    return problem_from_raw(raw, dtype=jnp.float64, k=k)
+
+
+def mesh_quickstart(n_dev):
+    return _mesh_run(bucketize(_quickstart_expansion(MESH_K)), n_dev)
+
+
+def blocks_costs(problem):
+    """Seeded per-block costs of each bucket (the LPT placement's
+    input)."""
+    rng = np.random.default_rng(1)
+    return [rng.uniform(1, 9, bk.nb).tolist() for bk in problem.buckets]
+
+
+def mesh_blocks(n_dev, dist_q_min_n=None):
+    import tempfile
+
+    from torch_dist_util import blocks_sdp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        raw = read_sdp(blocks_sdp(tmp), k=MESH_K)
+        problem = bucketize(problem_from_raw(raw, dtype=jnp.float64,
+                                             k=MESH_K))
+    costs = blocks_costs(problem)
+    return dict(costs=costs, **_mesh_run(problem, n_dev, costs,
+                                         dist_q_min_n, BLOCKS_ITERATIONS))
+
+
+def intra_quickstart():
+    from jax.sharding import Mesh
+
+    from sdpb_tpu.parallel import intra_solver
+
+    problem = _quickstart_expansion(MESH_K)
+    jm = Mesh(np.array(jax.devices("cpu")[:2]), (intra_solver.AXIS,))
+    params = SolverParams(precision=MESH_K * 53,
+                          max_iterations=INTRA_ITERATIONS)
+    result = solve(intra_solver.IntraProblem(problem, jm), params)
+    st = result.state
+    X = [[_words(np.asarray(st.X[j][p])[:n, :n])
+          for p, n in enumerate(bl.shape.psd_sizes)]
+         for j, bl in enumerate(problem.blocks)]
+    return dict(devices=2, precision=MESH_K * 53, y=_words(st.y),
+                x=[_words(x) for x in st.x], X=X,
+                **_record(result, digits=60))
+
+
 ENTRIES = {"quickstart_1d": quickstart_1d,
            "synthetic_shrunk": synthetic_shrunk,
            "quickstart_1d_expansion": quickstart_1d_expansion,
-           "outer_limits_quickstart": outer_limits_quickstart}
+           "outer_limits_quickstart": outer_limits_quickstart,
+           "mesh_quickstart_d2": lambda: mesh_quickstart(2),
+           "mesh_quickstart_d3": lambda: mesh_quickstart(3),
+           "mesh_blocks_d2": lambda: mesh_blocks(2),
+           "mesh_blocks_d3": lambda: mesh_blocks(3),
+           "mesh_blocks_d2_dist_q": lambda: mesh_blocks(2, 1),
+           "intra_quickstart_d2": intra_quickstart}
 
 
 def main(names):

@@ -67,22 +67,30 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 
 def test_missing_options_exit_nonzero(tmp_path, capsys, monkeypatch):
-    """What the port does not have yet exits 2 naming the missing
-    module: several visible CUDA devices (multi-device solves,
-    parallel/), checked before anything touches a card.  The
-    float64-expansion format (--device cpu) is ported
+    """Several visible CUDA devices no longer exit 2 for a missing
+    module: sdpb starts one rank per GPU (parallel/multihost.py's
+    launch_local, test_torch_multigpu_cli.py) before anything touches a
+    card, and returns the ranks' exit code, non-zero when a rank
+    failed.  The float64-expansion format (--device cpu) is ported
     (test_torch_solver_expansion.py), as are checkpoints,
     --checkpointInterval and restarts (test_torch_checkpoint.py); a
     --precision above the largest kernel class is refused at startup
     (test_torch_memory.py)."""
+    from sdpb_tpu_torch.parallel import multihost
+
+    calls = []
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(multihost, "launch_local",
+                        lambda module, argv, n: calls.append(n) or 1)
+    for key in ("RANK", "WORLD_SIZE", "SDPB_COORDINATOR"):
+        monkeypatch.delenv(key, raising=False)
     base = ["-s", str(SDP_1D), "-o", str(tmp_path / "out")]
-    assert app.main(base + ["--noFinalCheckpoint"]) == 2
-    assert "parallel/" in capsys.readouterr().err
+    assert app.main(base + ["--noFinalCheckpoint"]) == 1
     assert app.main(base + ["--device", "cuda", "--checkpointInterval",
-                            "10"]) == 2
-    assert "parallel/" in capsys.readouterr().err
+                            "10"]) == 1
+    assert calls == [2, 2]
+    assert not (tmp_path / "out").exists()
 
 
 def test_chip_smoke_needs_a_card(monkeypatch, capsys):
@@ -154,3 +162,23 @@ def test_outer_limits_exits_2_above_the_prime_pool(tmp_path, monkeypatch,
     err = capsys.readouterr().err
     assert "prime pool" in err and "largest precision it takes is" in err
     assert not (tmp_path / "out.json").exists()
+
+
+def test_the_parallel_modules_are_ported():
+    """sdpb_tpu/parallel/ has its counterpart in sdpb_tpu_torch/parallel/
+    (the JAX package's _shard.py is comm.py there), each standing alone
+    (test_no_jax_or_reference_package_imports covers them), and the
+    memory estimate counts several devices."""
+    import inspect
+
+    from sdpb_tpu_torch.solver import memory
+
+    names = {p.stem for p in (ROOT / "sdpb_tpu_torch" / "parallel")
+             .glob("*.py")}
+    assert {"comm", "multihost", "mesh", "dist_q", "intra", "intra_solver",
+            "bucketed"} <= names
+    assert {p.stem for p in (ROOT / "sdpb_tpu" / "parallel").glob("*.py")} \
+        - {"_shard", "__init__"} <= names
+    for fn in (memory.estimate_solver_memory, memory.check_memory_limit):
+        assert "n_devices" in inspect.signature(fn).parameters
+    assert callable(memory.intra_would_fit)

@@ -49,10 +49,11 @@ def jax_arrays(problem, state=None) -> dict:
     return out
 
 
-def compare_records(ours, theirs, rel_mp, rel_err, abs_step):
+def compare_records(ours, theirs, rel_mp, rel_err, abs_step, floor_err=0):
     """Per-iteration agreement: objectives, mu, gap and beta to
     ``rel_mp`` relative; the error norms (float32 estimates) to
-    ``rel_err``; step lengths to ``abs_step``."""
+    ``rel_err``, or both at most ``floor_err``; step lengths to
+    ``abs_step``."""
     ctx = mpmath.mp.clone()
     ctx.prec = 500
     assert len(ours) == len(theirs), (len(ours), len(theirs))
@@ -67,7 +68,9 @@ def compare_records(ours, theirs, rel_mp, rel_err, abs_step):
             assert close(getattr(a, f), getattr(b, f), rel_mp), \
                 (a.iteration, f, getattr(a, f), getattr(b, f))
         for f in ("primal_error_P", "primal_error_p", "dual_error"):
-            assert close(getattr(a, f), getattr(b, f), rel_err), \
+            va, vb = getattr(a, f), getattr(b, f)
+            assert close(va, vb, rel_err) or \
+                max(abs(ctx.mpf(va)), abs(ctx.mpf(vb))) <= floor_err, \
                 (a.iteration, f, getattr(a, f), getattr(b, f))
         for f in ("primal_step", "dual_step"):
             assert abs(getattr(a, f) - getattr(b, f)) <= abs_step, \
