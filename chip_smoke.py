@@ -12,9 +12,10 @@ Phases, each printing its name and elapsed seconds:
      library of K = 1..20 (the elementwise kernel in both designs, the
      Cholesky column loop and the substitution, each a value a thread
      where it can) and the
-     expansion libraries of K = 21, 23, 32, 33, 53 and 54 (every
-     operation a value a warp; one library a K, as a first call at that
-     K builds it) with nvcc, one process per object, all started
+     expansion libraries of K = 23, 53 and 54 (every operation a value a
+     warp, the column loops over thread-block clusters; one library a K,
+     as a first call at that K builds it) with nvcc, one process per
+     object, all started
      together (registers, stack frame and spills per kernel
      instantiation and per out-of-line function, and each build's
      seconds; a spill fails the phase at K <= 20, above it the spill
@@ -39,8 +40,10 @@ Phases, each printing its name and elapsed seconds:
      shapes (K = 8), at K = 2, 4 and 20 (at K = 20 also the full-width
      panels and solves) and, every operation on a warp, at K = 23 and
      54 (the 1d SDP's shapes, (2, 32, 32) panels and (2, 32, 32) x 16
-     solves), with a non-PD input and NaN and +-inf words, every word's
-     bits
+     solves; at K = 23 also the full-width (48, 32, 32) and (1, 384, 32)
+     panels and (48, 32, 32) x 384 solves), with a non-PD input and NaN
+     and +-inf words, every word's bits; the solve above K = 20 at 1-17
+     warps a column over 32 to 18,432 columns (the spread's switch)
   4. the 1d quickstart SDP end to end through the sdpb CLI entry point
      at the stock contract (--precision 212): PrimalDualOptimal and the
      known objective
@@ -78,10 +81,13 @@ Phases, each printing its name and elapsed seconds:
      operation on a warp; the CPU runs in processes of their own from
      phase 3 on), and --precision 3000 exiting 2 on the card naming the
      prime pool's limit; (d) the full-width problem at --precision 1024
-     (K = 20) for 1 iteration, its time, peak memory, launches and
-     elementwise launches by values a launch and design, and one more
-     iteration under torch.profiler (the column-loop kernels' device
-     time)
+     (K = 20) for 1 iteration under torch.profiler, its time, peak
+     memory, launches, elementwise launches by values a launch and
+     design, and the column-loop kernels' device time; (e) the same at
+     --precision 1200 (K = 23, the column loops above K = 20 at full
+     width), held to (d)'s iteration (K23_EXACT to 1e-250 relative, the
+     step lengths to 1e-12), with the two column-loop kernels' device
+     time, launches and share of the device time
   9. outer_limits on the card, each step a process: the quickstart PMP
      and a seeded full-width PMP (three blocks, 1x1 and 2x2 with poles,
      two decision variables) through pmp2functions -p 128 (byte for
@@ -97,14 +103,14 @@ Phases, each printing its name and elapsed seconds:
  10. several ranks on the one card (parallel/): (a) the 1d SDP through
      the sdpb CLI as two ranks sharing the card over gloo, started by
      parallel/multihost.py's launch_local as sdpb does with several
-     GPUs, PrimalDualOptimal within 1e-30 of phase 4's objectives; (b)
-     two full-width iterations through parallel/mesh.py as a world of
-     one over NCCL, the first within 1e-30 of phase 5's, s/iteration
-     beside phase 5's; (c) on two ranks sharing the card, the row-panel
-     Cholesky of a full-width Q (N = 384) and its solve (dist_q), the
-     intra-block Cholesky of a 240-row block and the exact SYRK over its
-     rows (intra), against the dense routes (1e-100 relative, the SYRK
-     bit for bit).  The backend, the rank count, the times, and each
+     GPUs, 20 iterations, each within 1e-30 of phase 4's mu, objectives
+     and gap; (b) a full-width iteration through parallel/mesh.py as a
+     world of one over NCCL, within 1e-30 of phase 5's first, its
+     seconds beside phase 5's; (c) on two ranks sharing the card, the
+     row-panel Cholesky of a full-width Q (N = 384) and its solve
+     (dist_q), the intra-block Cholesky of a 240-row block and the exact
+     SYRK over its rows (intra), against the dense routes (1e-100
+     relative, the SYRK bit for bit).  The backend, the rank count, the times, and each
      rank's limb-kernel launches (both kernels on every rank)
 
 The line before the last is one JSON object with a record per kernel
@@ -228,11 +234,13 @@ def phase_env() -> str:
 
 
 # The word counts above THREAD_MAX_WORDS whose libraries phase 2 builds
-# (one each, as a user's first call at that K would): the first, those
-# of phase 8c's --precision 1200 and 2800 (23, 53), the warp operations'
-# boundary (the merge network doubles its pairs above 32) and the CRT
-# prime pool's limit.
-WIDE_KS = (21, 23, 32, 33, 53, 54)
+# (one each, as a user's first call at that K would): those of phase 8c's
+# --precision 1200 and 2800 (23, 53; 1200 also phases 8e and 9) and the
+# CRT prime pool's limit (54, where a warp holds two words a lane and the
+# merge network twice the pairs).  Other K above 20 build at first use
+# (tests/test_torch_expansion_panels_wide.py holds the column loops' code
+# at K = 33 too).
+WIDE_KS = (23, 53, 54)
 
 
 def phase_build():
@@ -769,16 +777,31 @@ EXP_SOLVE_SHAPES = ((48, 32, 384, 8), (16, 48, 48, 8), (16, 48, 96, 8),
                                            (48, 32, 384, 20),
                                            (16, 48, 96, 20))
 EXP_FULL_WIDTH = {"exp_cholesky_panel": 8, "exp_solve_unblocked": 4}
-# Above K = 20 (every operation on a warp): the 1d SDP's shapes in
+# Above K = 20 (every operation on a warp, a step's operations over the
+# warps of a thread-block cluster): the 1d SDP's shapes in
 # approx_objective (Cholesky (1, 5, 5), solves (1, 3, 5) and (1, 5, 1))
 # and (2, 32, 32) panels and (2, 32, 32) x 16 solves, at K = 23 and 54;
-# the records of the (2, 32, 32) shapes at K = 23 (phase 8c's --precision
-# 1200) are the kernels line's.
+# and at K = 23 (phase 8e's --precision 1200) the full-width iteration's
+# widest: the X/Y blocks' (48, 32, 32) factor and (48, 32, 32) x 384
+# solves and Q's tallest panel (1, 384, 32).  The records of the
+# (2, 32, 32) shapes at K = 23 (phase 8c's --precision 1200) are the
+# kernels line's.
 EXP_WIDE_CHOL_SHAPES = tuple((bb, R, W, k) for k in (23, 54)
-                             for bb, R, W in ((1, 5, 5), (2, 32, 32)))
+                             for bb, R, W in ((1, 5, 5), (2, 32, 32))) + (
+    (48, 32, 32, 23), (1, 384, 32, 23))
 EXP_WIDE_SOLVE_SHAPES = tuple((bb, n, m, k) for k in (23, 54)
                               for bb, n, m in ((1, 3, 5), (1, 5, 1),
-                                               (2, 32, 16)))
+                                               (2, 32, 16))) + (
+    (48, 32, 384, 23),)
+# The solve's spread above K = 20 (ops/expansion_kernels.py
+# solve_column_warps): wc warps a column for each wc in SPREAD_WCS (up to
+# SPREAD_MAX_WARPS warps in all) at n = 32 over bb * m columns from 32 to
+# the full width's 18,432 (K = 23) and from 32 to 512 (K = 54), each
+# result bit for bit wc = 1's.
+SPREAD_SHAPES = ((2, 16, 23), (4, 128, 23), (48, 384, 23), (2, 16, 54),
+                 (4, 128, 54))
+SPREAD_WCS = (1, 2, 4, 8, 16, 17)
+SPREAD_MAX_WARPS = 40000
 
 
 def _exp_sqrt_ops(k):
@@ -867,13 +890,15 @@ def _panel_checks(dev, rng):
     which this phase holds bit for bit to mp/core.py's plain functions
     above; the loop over those plain functions themselves would take
     minutes at these shapes.  Also a non-PD batch (NaN out as the loop
-    gives) and NaN and +-inf words in a panel and in a solve."""
+    gives) and NaN and +-inf words in a panel and in a solve; above K =
+    20 the solve's spreads (_solve_spreads)."""
     import torch
 
     from sdpb_tpu_torch.mp import core
     from sdpb_tpu_torch.ops import expansion_kernels as ek
 
     rows = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for idx, (bb, R, W, k) in enumerate(EXP_CHOL_SHAPES +
                                         EXP_WIDE_CHOL_SHAPES):
         name = "exp_cholesky_panel" + (
@@ -889,14 +914,19 @@ def _panel_checks(dev, rng):
         ms = cuda_ms(lambda: ek.exp_cholesky_panel(c), 3)
         nbytes, ops = 2 * c.numel() * 8, _exp_chol_ops(bb, R, W, k)
         bound, by = bound_ms(nbytes, ops, PEAK_F64_PER_S)
+        spread = ""
+        if k > ek.THREAD_MAX_WORDS:
+            units = bb * max(1, -(-(R - W) // ek.chol_row_tile(W)))
+            blocks = ek.chol_cluster_blocks(units, ek._clusters("chol", k))
+            spread = f"  clusters {units} of {blocks} blocks"
         print(f"{name} ({bb},{R},{W},{k}): bit-exact  kernel {ms:.3f} ms  "
               f"plain {plain_ms:.1f} ms  bound {bound:.5f} ms ({by})  "
-              f"ratio {ms / bound:.0f}", flush=True)
+              f"ratio {ms / bound:.0f}{spread}", flush=True)
         rows.setdefault(name, []).append(dict(
             shape=[bb, R, W, k], err=0.0, ms=ms, plain_ms=plain_ms,
             bytes=nbytes, ops=ops, peak=PEAK_F64_PER_S, main=main))
     name = "exp_cholesky_panel"
-    for k in (2, 8, 23):
+    for k in (2, 8, 23, 54):
         bad = _spd_expansions(rng, 3, 32, k, dev)
         bad[1] = -bad[1]
         bad[2, 9, 9] = -bad[2, 9, 9]
@@ -936,18 +966,19 @@ def _panel_checks(dev, rng):
             nbytes = (lfac.numel() + 2 * b.numel() + inv_d.numel()) * 8
             ops = _exp_solve_ops(bb, n, m, k, transpose)
             bound, by = bound_ms(nbytes, ops, PEAK_F64_PER_S)
+            spread = (f"lanes {ek.solve_lanes(bb, n, m)}" if k <= 20
+                      else "warps a column "
+                      + str(ek._solve_spread(bb, n, m, k, dev)))
             print(f"{name} ({bb},{n},{n})x{m} K={k} T={int(transpose)}: "
-                  f"bit-exact  lanes "
-                  f"{ek.solve_lanes(bb, n, m) if k <= 20 else 32}  kernel "
-                  f"{ms:.3f} ms  plain {plain_ms:.1f} ms  bound "
-                  f"{bound:.5f} ms ({by})  ratio {ms / bound:.0f}",
-                  flush=True)
+                  f"bit-exact  {spread}  kernel {ms:.3f} ms  plain "
+                  f"{plain_ms:.1f} ms  bound {bound:.5f} ms ({by})  ratio "
+                  f"{ms / bound:.0f}", flush=True)
             rows.setdefault(name, []).append(dict(
                 shape=[bb, n, m, k, int(transpose)], err=0.0, ms=ms,
                 plain_ms=plain_ms, bytes=nbytes, ops=ops,
                 peak=PEAK_F64_PER_S, main=main))
     name = "exp_solve_unblocked"
-    for k in (2, 8, 23):
+    for k in (2, 8, 23, 54):
         lfac = ek.exp_cholesky_panel(_spd_expansions(rng, 2, 32, k, dev))
         didx = torch.arange(32, device=dev)
         inv_d = core.recip(lfac[:, didx, didx, :]).contiguous()
@@ -961,7 +992,43 @@ def _panel_checks(dev, rng):
                         ek.exp_solve_unblocked(lfac, b, inv_d, transpose),
                         ek.solve_unblocked_plain(lfac, b, inv_d, transpose))
     print(f"{name}: NaN/+-inf words match the plain loop", flush=True)
+    _solve_spreads(dev, rng)
     return rows
+
+
+def _solve_spreads(dev, rng):
+    """The solve above K = 20 at each spread of SPREAD_WCS (warps a
+    column) over SPREAD_SHAPES: CUDA-event ms of each, every result bit
+    for bit wc = 1's (a warp a column, the operations one after
+    another), and the fastest beside solve_column_warps's choice."""
+    import torch
+
+    from sdpb_tpu_torch.mp import core
+    from sdpb_tpu_torch.ops import expansion_kernels as ek
+
+    n = 32
+    for bb, m, k in SPREAD_SHAPES:
+        lfac = ek.exp_cholesky_panel(_spd_expansions(rng, bb, n, k, dev))
+        didx = torch.arange(n, device=dev)
+        inv_d = core.recip(lfac[:, didx, didx, :]).contiguous()
+        b = _words_of(rng, rng.standard_normal((bb, n, m)), k, dev)
+        times, outs = {}, {}
+        for wc in SPREAD_WCS:
+            if bb * m * wc > SPREAD_MAX_WARPS:
+                continue
+
+            def run(wc=wc):
+                outs[wc] = ek.solve_warps(lfac, b, inv_d, False, wc)
+
+            times[wc] = cuda_ms(run, 2)
+            _check_bits(f"solve spread wc = {wc} ({bb},{n},{n})x{m} K={k}",
+                        outs[wc], outs[1])
+        print(f"solve spread ({bb},{n},{n})x{m} K={k}, {bb * m} columns: "
+              f"ms by warps a column {json.dumps(times)}; fastest "
+              f"{min(times, key=times.get)}, chosen "
+              f"{ek._solve_spread(bb, n, m, k, dev)} (clusters of 1 .. 8 "
+              f"blocks the card holds: "
+              f"{list(ek._clusters('solve', k).values())})", flush=True)
 
 
 def phase_1d(dev, out_root: Path):
@@ -1169,6 +1236,10 @@ PORT_KERNELS = (
      r"\(anonymous namespace\)::exp_warp_kernel<"),
     ("exp_cholesky_panel", r"\(anonymous namespace\)::exp_chol_kernel<"),
     ("exp_solve_unblocked", r"\(anonymous namespace\)::exp_solve_kernel<"),
+    ("exp_cholesky_panel_warp",
+     r"\(anonymous namespace\)::exp_chol_warps_kernel<"),
+    ("exp_solve_unblocked_warp",
+     r"\(anonymous namespace\)::exp_solve_warps_kernel<"),
 )
 PROFILE_CLASSES = (
     ("port_kernels", "|".join(pat for _, pat in PORT_KERNELS)),
@@ -1178,12 +1249,9 @@ PROFILE_CLASSES = (
 
 
 def _profile_iteration(problem, state, s_per_it, params, label):
-    """One more full-width iteration under torch.profiler: device time
-    per CUDA kernel name, summed, and that total over the unprofiled
-    seconds per iteration (the device's busy share; kernels run on one
-    stream, so they do not overlap)."""
+    """One more full-width iteration under torch.profiler, summed by
+    _profile_report against the unprofiled seconds per iteration."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from sdpb_tpu_torch.solver import driver
@@ -1191,6 +1259,16 @@ def _profile_iteration(problem, state, s_per_it, params, label):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         driver.solve(problem, params, state=state)
         torch.cuda.synchronize()
+    return _profile_report(prof, s_per_it, label)
+
+
+def _profile_report(prof, s_per_it, label):
+    """Device time per CUDA kernel name of a profiled iteration, summed,
+    and that total over ``s_per_it`` (the device's busy share; kernels
+    run on one stream, so they do not overlap); prints it and returns
+    the port's kernels' device ms and launches."""
+    from torch.autograd import DeviceType
+
     # the trace's raw events summed by name: key_averages() builds a
     # Python object tree over every event first, minutes for the ~10^6
     # events of an iteration, where this loop takes about a second
@@ -1219,6 +1297,7 @@ def _profile_iteration(problem, state, s_per_it, params, label):
         "device_ms_by_class": classes,
         "port_kernels": kernels,
         "top_device_ms": {k[:120]: v for k, v in top}}), flush=True)
+    return kernels, total
 
 
 def _port_env():
@@ -1973,61 +2052,123 @@ def _expansion_approx(dev, out_root: Path, sol_dir: Path, cpu_jobs):
     return paths
 
 
-def _expansion_k20(dev):
-    """(d) bench.py's synthetic problem at full width in expansions at
-    --precision 1024 (K = 20, the column-loop kernels' largest word
-    count): one iteration, its time, peak memory and the expansion
-    kernels' launches, finite objectives and mu; then one more iteration
-    under torch.profiler for the kernels' device time."""
+def _expansion_wide(dev, precision, label):
+    """bench.py's synthetic problem at full width in expansions at
+    ``precision``: one iteration under torch.profiler, its seconds (the
+    profiler's cost included), peak memory and the expansion kernels'
+    launches, the elementwise launches by values and design, finite
+    objectives and mu, and the trace's device time by kernel.  Returns
+    (launches, the iteration's record, the port kernels' device ms and
+    launches, the trace's device ms)."""
     import mpmath
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from sdpb_tpu_torch.ops import expansion_kernels as ek
     from sdpb_tpu_torch.solver import driver, synthetic
     from sdpb_tpu_torch.solver.params import SolverParams
 
-    params = SolverParams(precision=1024, max_iterations=1,
+    params = SolverParams(precision=precision, max_iterations=1,
                           word_dtype="float64")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     problem, state = synthetic.build_problem(params, device=dev)
     ek.reset_launches()
-    t0 = time.time()
-    with _BatchHistogram() as hist:
+    with _BatchHistogram() as hist, \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
         result = driver.solve(problem, params, state=state)
         torch.cuda.synchronize()
-    seconds = time.time() - t0
+        seconds = time.time() - t0
     launches = dict(ek.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    print(f"(d) elementwise launches by n and design: "
+    print(f"{label} elementwise launches by n and design: "
           f"{json.dumps(hist.report())}", flush=True)
-    _require_launches("expansion K = 20", launches, EXP_PATH_KERNELS)
+    name = f"expansion K = {params.n_words}"
+    _require_launches(name, launches, EXP_PATH_KERNELS)
     if len(result.iterations) != 1:
-        raise AssertionError(f"expansion K = 20 ran "
-                             f"{len(result.iterations)} iterations")
+        raise AssertionError(f"{name} ran {len(result.iterations)} "
+                             f"iterations")
     got = result.iterations[0]
     for key in ("mu", "primal_objective", "dual_objective"):
         if not mpmath.isfinite(_mpf400(getattr(got, key))):
-            raise AssertionError(f"expansion K = 20 {key} is "
-                                 f"{getattr(got, key)}")
-    print(f"(d) expansion full width (K = {params.n_words}): 1 iteration "
-          f"in {seconds:.2f} s; max_memory_allocated "
-          f"{peak / 2**30:.3f} GiB; mu {got.mu[:24]}; launches "
-          f"{launches}", flush=True)
-    _profile_iteration(problem, state, seconds, params,
-                       "expansion full width K = 20")
+            raise AssertionError(f"{name} {key} is {getattr(got, key)}")
+    print(f"{label} expansion full width (K = {params.n_words}): 1 "
+          f"iteration in {seconds:.2f} s under the profiler; "
+          f"max_memory_allocated {peak / 2**30:.3f} GiB; mu "
+          f"{got.mu[:24]}; launches {launches}", flush=True)
+    kernels, total = _profile_report(prof, seconds, f"{name} full width")
+    return launches, got, kernels, total
+
+
+# Phase 8e against 8d: the same float64 data (synthetic.build_problem
+# pads the same float64 values with zero words) through the same
+# arithmetic at 1024 and 1200 bits.  What is formed before any float64
+# rounding, the start point's mu, objectives, gap and error norms (its
+# residues and R = mu I - XY), agrees to about 2^-1024 ~ 1e-308 times the
+# iteration's condition: held to 1e-250 relative, read at 1400 bits.  The
+# step lengths take their eigenvectors from float64 eigensolves
+# (solver/iteration.py min_eig_mp) of matrices that agree to that, and so
+# to their float64 roundings, then round to float64 themselves: held to
+# 1e-12 relative, a float64 eigensolve's own accuracy at these sizes;
+# beta_corrector follows the predictor's step lengths and is held to the
+# same.
+K23_EXACT = ("mu", "primal_objective", "dual_objective", "duality_gap",
+             "primal_error_P", "primal_error_p", "dual_error", "R_error")
+K23_EXACT_TOL = 1e-250
+K23_STEP = ("primal_step", "dual_step", "beta_corrector")
+K23_STEP_TOL = 1e-12
+
+
+def _rel_fine(a, b):
+    """|a - b| / max(|a|, |b|), read at 1400 bits (K = 23 carries up to
+    1219)."""
+    import mpmath
+
+    ctx = mpmath.mp.clone()
+    ctx.prec = 1400
+    a, b = ctx.mpf(a), ctx.mpf(b)
+    return float(abs(a - b) / max(abs(a), abs(b), ctx.mpf("1e-400")))
+
+
+def _expansion_k23(dev, k20):
+    """(e) The full-width iteration at --precision 1200 (K = 23, the
+    column loops above K = 20 on their widest shapes) against (d)'s at
+    1024 (K = 20): K23_EXACT to K23_EXACT_TOL, K23_STEP to K23_STEP_TOL;
+    the two column-loop kernels' device time and launches and their
+    share of the iteration's device time."""
+    launches, got, kernels, total = _expansion_wide(dev, 1200, "(e)")
+    for key in ("exp_cholesky_panel_warp", "exp_solve_unblocked_warp"):
+        if launches.get(key, 0) <= 0 or kernels[key]["launches"] <= 0:
+            raise AssertionError(f"(e) never launched {key}: {launches}")
+    worst = {}
+    for keys, tol in ((K23_EXACT, K23_EXACT_TOL), (K23_STEP, K23_STEP_TOL)):
+        for key in keys:
+            r = _rel_fine(getattr(got, key), getattr(k20, key))
+            worst[key] = r
+            if not r <= tol:
+                raise AssertionError(f"(e) {key} {getattr(got, key)} vs "
+                                     f"K = 20 {getattr(k20, key)}")
+    loops = {k: kernels[k] for k in ("exp_cholesky_panel_warp",
+                                     "exp_solve_unblocked_warp")}
+    share = sum(v["device_ms"] for v in loops.values()) / total
+    print(f"(e) K = 23 vs K = 20, worst relative: {json.dumps(worst)}; "
+          f"column loops above K = 20 {json.dumps(loops)}, "
+          f"{share:.4f} of the device time", flush=True)
     return launches
 
 
 def phase_expansion(dev, out_root: Path, limb_full, cpu_jobs):
-    """Phase 8: the expansion format on the card, paths (a)-(d)."""
+    """Phase 8: the expansion format on the card, paths (a)-(e)."""
     t = time.time()
     paths = {}
     paths["exp_1d"], sol_dir, _ = _expansion_1d(dev, out_root)
     paths["exp_full_width"], mem = _expansion_full(
         dev, limb_full["first"], limb_full["direction"])
     paths.update(_expansion_approx(dev, out_root, sol_dir, cpu_jobs))
-    paths["exp_full_width_k20"] = _expansion_k20(dev)
+    paths["exp_full_width_k20"], k20, _, _ = _expansion_wide(dev, 1024,
+                                                              "(d)")
+    paths["exp_full_width_k23"] = _expansion_k23(dev, k20)
     phase("8 expansion format", t)
     return paths, mem
 
@@ -2455,15 +2596,23 @@ def _require_rank_launches(label, by_rank):
                                      f"{name}: {launches}")
 
 
+# Phase 10a's depth: the 1d SDP over 2 ranks for this many iterations
+# (of the 160 phase 4 takes to PrimalDualOptimal), each iteration's mu,
+# objectives and gap within 1e-30 (relative) of phase 4's, as the whole
+# solve's objectives were.
+RANKS_1D_ITERATIONS = 20
+RANKS_1D_FIELDS = ("mu", "P-obj", "D-obj", "gap")
+
+
 def phase_ranks(dev, out_root: Path, full):
     """Phase 10: (a) the 1d SDP through the sdpb CLI as two ranks sharing
-    the card over gloo, against phase 4's one-device solve; (b) two
-    full-width iterations through parallel/mesh.py as a world of one
-    over NCCL, against phase 5's; (c) the row-panel (dist_q) and
-    intra-block factorizations on two ranks sharing the card, against
-    the dense ones.  Every rank must launch both limb kernels."""
+    the card over gloo for RANKS_1D_ITERATIONS iterations, against phase
+    4's one-device solve; (b) a full-width iteration through
+    parallel/mesh.py as a world of one over NCCL, against phase 5's; (c)
+    the row-panel (dist_q) and intra-block factorizations on two ranks
+    sharing the card, against the dense ones.  Every rank must launch
+    both limb kernels."""
     t = time.time()
-    import mpmath
     import torch
 
     from sdpb_tpu_torch.ops import limb_kernels as lk
@@ -2482,31 +2631,38 @@ def phase_ranks(dev, out_root: Path, full):
     rc, cli_s = _launch_ranks(
         ["--sdpb-rank", str(work), "-s", str(sdp), "-o", str(work / "out"),
          "-c", str(work / "ck"), "--precision", "212",
+         "--maxIterations", str(RANKS_1D_ITERATIONS),
          "--noFinalCheckpoint"])
     if rc != 0:
         raise AssertionError(f"sdpb over 2 ranks exited {rc}: "
                              f"{(work / 'rank0.log').read_text()[-2000:]}")
     log0 = (work / "rank0.log").read_text().splitlines()
     backend = next(x for x in log0 if "rank(s) over" in x)
-    fields, dev_obj = _check_1d_out(work / "out")
-    one = {}
-    for line in (out_root / "quickstart_out" / "out.txt").read_text() \
-            .splitlines():
-        key, _, val = line.partition("=")
-        one[key.strip()] = val.strip().rstrip(";")
-    mpmath.mp.prec = 400
-    gap = max(abs(mpmath.mpf(fields[f]) - mpmath.mpf(one[f]))
-              for f in ("primalObjective", "dualObjective", "dualityGap"))
-    if gap > mpmath.mpf("1e-30"):
-        raise AssertionError(f"2 ranks off phase 4's solve by {gap}")
+    reason = next(line.partition("=")[2].strip().rstrip(";")
+                  for line in (work / "out" / "out.txt").read_text()
+                  .splitlines() if line.startswith("terminateReason"))
+    got = _records(work / "out" / "iterations.json")
+    want = _records(out_root / "quickstart_out" / "iterations.json")
+    if reason != '"maxIterations exceeded"' or \
+            len(got) != RANKS_1D_ITERATIONS:
+        raise AssertionError(f"2 ranks ended {reason} after {len(got)} "
+                             f"iterations")
+    worst = 0.0
+    for g, w in zip(got, want):
+        for key in RANKS_1D_FIELDS:
+            r = _rel(g[key], w[key])
+            worst = max(worst, r)
+            if not r <= 1e-30:
+                raise AssertionError(f"2 ranks' iteration {g['iteration']} "
+                                     f"{key} {g[key]} vs phase 4's {w[key]}")
     by_rank = [json.loads((work / f"launches.{r}.json").read_text())
                for r in range(2)]
     _require_rank_launches("10a", by_rank)
-    n_it = len(json.loads((work / "out" / "iterations.json").read_text()))
-    print(f"10a sdpb CLI, {backend.strip()}: {fields['terminateReason']} "
-          f"in {n_it} iterations, {cli_s:.1f} s wall (processes "
-          f"included), objectives within {float(gap):.3e} of phase 4's, "
-          f"launches by rank {by_rank}", flush=True)
+    print(f"10a sdpb CLI, {backend.strip()}: {reason} after "
+          f"{len(got)} iterations, {cli_s:.1f} s wall (processes "
+          f"included), each iteration's {', '.join(RANKS_1D_FIELDS)} "
+          f"within {worst:.3e} (relative) of phase 4's, launches by rank "
+          f"{by_rank}", flush=True)
     for r, launches in enumerate(by_rank):
         paths[f"ranks_cli_rank{r}"] = launches
 
@@ -2514,7 +2670,7 @@ def phase_ranks(dev, out_root: Path, full):
     comm = comm_mod.init_process_group(
         0, 1, dev, f"file://{work / 'nccl_store'}", "nccl")
     try:
-        params = SolverParams(precision=400, max_iterations=2)
+        params = SolverParams(precision=400, max_iterations=1)
         host, _ = synthetic.build_problem(params, device="cpu")
         mproblem = mesh.shard_problem(host, comm)
         lk.reset_launches()
@@ -2526,7 +2682,7 @@ def phase_ranks(dev, out_root: Path, full):
         launches = dict(lk.LAUNCHES)
     finally:
         comm_mod.destroy(comm)
-    if len(result.iterations) != 2:
+    if len(result.iterations) != 1:
         raise AssertionError(f"10b ran {len(result.iterations)} iterations")
     _require_rank_launches("10b", [launches])
     first, want = result.iterations[0], full["first"]
@@ -2535,8 +2691,8 @@ def phase_ranks(dev, out_root: Path, full):
                         "duality_gap", "beta_corrector"))
     if not off <= 1e-30:
         raise AssertionError(f"10b's first iteration off phase 5's by {off}")
-    print(f"10b mesh, world of 1 over {comm.backend}: 2 full-width "
-          f"iterations in {seconds:.2f} s "
+    print(f"10b mesh, world of 1 over {comm.backend}: 1 full-width "
+          f"iteration in {seconds:.2f} s "
           f"({[round(r.iter_time, 3) for r in result.iterations]} s each; "
           f"phase 5 {full['s_per_it']:.2f} s/iteration), first iteration "
           f"within {off:.3e} of phase 5's, launches {launches}", flush=True)

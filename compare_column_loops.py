@@ -2,10 +2,12 @@
 (``exp_cholesky_panel``, ``exp_solve_unblocked``) at chip_smoke.py's
 phase-3 shapes, for several checkouts in one run on one card.
 
-    python3 compare_column_loops.py TREE [TREE ...]
+    python3 compare_column_loops.py [--wide] TREE [TREE ...]
 
 Each TREE is the root of a checkout of this repository (this one, or an
-older commit unpacked with ``git archive``).  Each runs in a process of
+older commit unpacked with ``git archive``).  ``--wide`` times the
+shapes above K = 20 instead (EXP_WIDE_CHOL_SHAPES, EXP_WIDE_SOLVE_SHAPES;
+the libraries of K = 23 and 54 built, not that of K <= 20).  Each runs in a process of
 its own, in the order given: its ``sdpb_tpu_torch`` is imported, its
 expansion library built from its sources, and every shape timed with
 the same inputs (chip_smoke.py's generators and seeds): CUDA events
@@ -35,7 +37,7 @@ def _smoke():
     return mod
 
 
-def time_tree(tree: str) -> list:
+def time_tree(tree: str, wide: bool = False) -> list:
     """Times of one checkout's kernels, this process importing its
     package."""
     import numpy as np
@@ -50,7 +52,16 @@ def time_tree(tree: str) -> list:
         raise SystemExit("compare_column_loops: no CUDA device")
     cs = _smoke()
     dev = torch.device("cuda", 0)
-    build = ek.build(force=True)
+    if wide:
+        ks = sorted({k for *_, k in cs.EXP_WIDE_CHOL_SHAPES})
+        builds = [ek.build(force=True, k=k) for k in ks]
+        build = {"seconds": sum(b["seconds"] for b in builds),
+                 "ptxas": [ln for b in builds for ln in b["ptxas"]]}
+        chol_shapes, solve_shapes = (cs.EXP_WIDE_CHOL_SHAPES,
+                                     cs.EXP_WIDE_SOLVE_SHAPES)
+    else:
+        build = ek.build(force=True)
+        chol_shapes, solve_shapes = cs.EXP_CHOL_SHAPES, cs.EXP_SOLVE_SHAPES
     res = cs._ptxas_resources(build["ptxas"])
     rows = [{"tree": tree, "build_s": build["seconds"],
              "spill_bytes": sum(r.get("spill_stores", 0)
@@ -60,12 +71,12 @@ def time_tree(tree: str) -> list:
                            if "chol" in n or "solve" in n
                            or "warp::" in n}}]
     rng = np.random.default_rng(0)
-    for bb, R, W, k in cs.EXP_CHOL_SHAPES:
+    for bb, R, W, k in chol_shapes:
         c = cs._spd_expansions(rng, bb, R, k, dev, cols=W)
         ms = cs.cuda_ms(lambda: ek.exp_cholesky_panel(c), 3)
         rows.append({"tree": tree, "kernel": "exp_cholesky_panel",
                      "shape": [bb, R, W, k], "ms": ms})
-    for bb, n, m, k in cs.EXP_SOLVE_SHAPES:
+    for bb, n, m, k in solve_shapes:
         lfac = ek.exp_cholesky_panel(cs._spd_expansions(rng, bb, n, k, dev))
         didx = torch.arange(n, device=dev)
         inv_d = core.recip(lfac[:, didx, didx, :]).contiguous()
@@ -80,8 +91,10 @@ def time_tree(tree: str) -> list:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    wide = argv[:1] == ["--wide"]
+    argv = argv[1:] if wide else argv
     if argv[:1] == ["--one"]:
-        for row in time_tree(argv[1]):
+        for row in time_tree(argv[1], wide):
             print(json.dumps(row), flush=True)
         return 0
     if not argv:
@@ -89,7 +102,8 @@ def main(argv=None) -> int:
         return 2
     rows = []
     for tree in argv:
-        proc = subprocess.run([sys.executable, __file__, "--one", tree],
+        proc = subprocess.run([sys.executable, __file__,
+                               *(["--wide"] if wide else []), "--one", tree],
                               capture_output=True, text=True)
         sys.stderr.write(proc.stderr[-4000:])
         if proc.returncode != 0:

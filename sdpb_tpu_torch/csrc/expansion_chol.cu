@@ -44,6 +44,28 @@
 // 8 links and a thread's product streams over its levels, which keeps
 // the registers and the build's time in bounds.
 //
+// Above K = kThreadMaxWords = 20 (--precision 1061 .. 2862: K = 21 ..
+// 54) every operation is a value a warp (expansion_panels.cuh
+// chol_panel_cluster), and a warp operation there is slow (a product at
+// K = 54 runs two chains over 3,023 words) and holds 6.2-27.5 KB of
+// shared memory, so a few fit on an SM.  A step's update, ~(R - t)(W - t)
+// products and additions, is then spread over the card: a panel (or a
+// row tile of a tall one) runs on a thread-block cluster of P blocks of
+// kWarps warps, the pivot warp and the update warps, P the largest power
+// of two up to 8 with which all the batch's clusters run at once
+// (ops/expansion_kernels.py chol_cluster_blocks, from
+// cudaOccupancyMaxActiveClusters); from P = 4 up the pivot warp's block
+// takes no update, so that the pivot chain runs alone on its SM (the
+// block's other warps exit).  The warps share
+// the panel, the multipliers and the pivots through global memory and
+// meet at the cluster's barrier twice a step (barrier.cluster, chosen
+// over a per-step flag in global memory): a cluster's blocks are resident
+// together, so no block spins on one that has yet to start, and the
+// hardware barrier is short beside a step's 34-39 dependent warp
+// operations.  Another block's shared memory (distributed shared memory)
+// was not needed: the L2 round trip it would save is small beside a warp
+// operation, and every block's shared memory goes to its warps' scratch.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -c -Xcompiler -fPIC -DEXP_K=<K>
 //        (see ops/expansion_kernels.py)
@@ -83,28 +105,27 @@ __global__ void __launch_bounds__(kThreads, 1)
                             sh, threadIdx.x, kThreads);
 }
 
-// Above K = kThreadMaxWords (expansion_panels.cuh
-// chol_panel_block_warps): the same grid and rows, the update threads'
-// work on the three update warps, every operation a value a warp.
+// Above K = kThreadMaxWords: warps a block, and blocks a cluster at
+// most (the portable cluster size).
+constexpr int kWarps = 8;
+constexpr int kMaxCluster = 8;
+
+// Clusters of P blocks (expansion_panels.cuh chol_cluster_warp: cluster
+// b * tiles + tile takes batch element b's pivot block and rows
+// W + tile * rt ... of at most rt rows).  One block an SM: a block's
+// 8 warps keep up to 255 registers a thread, and at K = 54 their scratch
+// is all of the SM's shared memory.  out, scratch and share pass between
+// the cluster's blocks (no __restrict__).
 template <int K>
-__global__ void __launch_bounds__(kThreads, 1)
-    exp_chol_warps_kernel(const double* __restrict__ in,
-                          double* __restrict__ out,
-                          double* __restrict__ scratch, int R, int W,
-                          int tiles, int rt) {
+__global__ void __launch_bounds__(kWarps * 32, 1)
+    exp_chol_warps_kernel(const double* __restrict__ in, double* out,
+                          double* scratch, double* share, int R, int W,
+                          int tiles, int rt, int P) {
   extern __shared__ double sh[];
-  const int b = blockIdx.x / tiles, tile = blockIdx.x % tiles;
-  const long panel = (long)R * W * K;
-  const double* in_b = in + b * panel;
-  double* out_b = out + b * panel;
-  const int row0 = W + tile * rt;
-  const int nt = min(rt, R - row0);
-  double* diag = tile == 0 ? out_b
-                           : scratch + ((long)b * (tiles - 1) + tile - 1) *
-                                           W * W * K;
-  expn::chol_panel_block_warps<K>(in_b, in_b + (long)row0 * W * K, diag,
-                                  out_b + (long)row0 * W * K, W,
-                                  nt > 0 ? nt : 0, sh, threadIdx.x, kThreads);
+  expn::chol_cluster_warp<K>(in, out, scratch, share, R, W, tiles, rt, P,
+                             kWarps, blockIdx.x / P,
+                             (blockIdx.x % P) * kWarps + (threadIdx.x >> 5),
+                             sh, threadIdx.x & 31);
 }
 
 }  // namespace
@@ -117,6 +138,33 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 extern "C" {
 
+#if EXP_K > 20
+// share: (bb * tiles, chol_cluster_share_words(W + rt)) doubles; P:
+// blocks a cluster.
+int EXP_PASTE(expansion_chol_warps_k, EXP_K)(const double* in, double* out,
+                                             double* scratch, double* share,
+                                             int bb, int R, int W, int tiles,
+                                             int rt, int P, void* stream) {
+  if (bb < 1 || W < 1 || R < W || tiles < 1 || rt < 1 ||
+      (tiles > 1 && scratch == nullptr) || share == nullptr || P < 1 ||
+      P > kMaxCluster || EXP_K > expn::kMaxWords)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem =
+      (size_t)expn::chol_cluster_smem_words<EXP_K>(kWarps) * sizeof(double);
+  return (int)expn::launch_cluster(exp_chol_warps_kernel<EXP_K>,
+                                   (long)bb * tiles * P, kWarps * 32, P, smem,
+                                   stream, in, out, scratch, share, R, W,
+                                   tiles, rt, P);
+}
+
+// Clusters of P blocks of the kernel that the card holds at once, or a
+// negative CUDA error.
+int EXP_PASTE(expansion_chol_warps_clusters_k, EXP_K)(int P) {
+  return expn::max_clusters(
+      exp_chol_warps_kernel<EXP_K>, kWarps * 32, P,
+      (size_t)expn::chol_cluster_smem_words<EXP_K>(kWarps) * sizeof(double));
+}
+#else
 int EXP_PASTE(expansion_chol_k, EXP_K)(const double* in, double* out,
                                        double* scratch, int bb, int R, int W,
                                        int tiles, int rt, void* stream) {
@@ -124,17 +172,6 @@ int EXP_PASTE(expansion_chol_k, EXP_K)(const double* in, double* out,
       W + (R > W ? rt : 0) > kThreads - 32 ||
       (tiles > 1 && scratch == nullptr) || EXP_K > expn::kMaxWords)
     return (int)cudaErrorInvalidValue;
-#if EXP_K > 20
-  const size_t smem = (size_t)expn::chol_warps_smem_words<EXP_K>(
-                          W + (R > W ? rt : 0), kThreads) * sizeof(double);
-  const cudaError_t err = cudaFuncSetAttribute(
-      exp_chol_warps_kernel<EXP_K>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  exp_chol_warps_kernel<EXP_K><<<bb * tiles, kThreads, smem,
-                                 (cudaStream_t)stream>>>(in, out, scratch, R,
-                                                         W, tiles, rt);
-#else
   const size_t smem = (size_t)expn::chol_smem_words<EXP_K>(
                           W + (R > W ? rt : 0), kThreads) * sizeof(double);
   if (smem > 48 * 1024) {
@@ -146,8 +183,8 @@ int EXP_PASTE(expansion_chol_k, EXP_K)(const double* in, double* out,
   exp_chol_kernel<EXP_K><<<bb * tiles, kThreads, smem,
                            (cudaStream_t)stream>>>(in, out, scratch, R, W,
                                                    tiles, rt);
-#endif
   return (int)cudaGetLastError();
 }
+#endif
 
 }  // extern "C"

@@ -12,8 +12,13 @@
 // warp operations run in one warp.  It prints one JSON line per
 // operation: SM cycles per operation.
 //
+// Above K = 20 (every column-loop operation a value a warp) only the
+// warp operations run: alone on the SM, and as each of 8 warps on one SM
+// (as a cluster block of the column loops above K = 20 runs them), each
+// warp its own chain; "warps" in the line says which.
+//
 // Not part of the library build.  On a machine with the card, from the
-// repository root, for K in 2..20:
+// repository root, for K in 2..54:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false \
 //        -DEXP_K=8 -I sdpb_tpu_torch/csrc -o /tmp/expansion_latency \
 //        sdpb_tpu_torch/csrc/expansion_latency.cu && /tmp/expansion_latency
@@ -36,6 +41,7 @@ constexpr int kOps = 5;
 const char* const kNames[kOps] = {"mul", "add", "add_f64", "mul_old",
                                   "add_old"};
 
+#if EXP_K <= 20
 __global__ void __launch_bounds__(128, 1)
     latency(const double* a, const double* b, double* out,
             long long* cycles, int reps) {
@@ -80,18 +86,21 @@ __global__ void __launch_bounds__(128, 1)
   for (int i = 0; i < kOps; ++i)
     cycles[threadIdx.x * kOps + i] = t[i + 1] - t[i];
 }
+#endif
 
 // The warp operations of csrc/expansion_warp.cuh (a Cholesky's pivot
-// warp): one warp, a dependent chain of ``reps`` of each.
+// warp): each warp of the block a dependent chain of ``reps`` of each,
+// in its own scratch; warp 0's cycles.
 __global__ void latency_warp(const double* a, const double* b, double* out,
                              long long* cycles, int reps) {
-  __shared__ double wsm[expn::warp::scratch_words<K>()];
-  const expn::warp::Scratch<K> ws(wsm);
-  const int lane = threadIdx.x;
+  extern __shared__ double wbuf[];
+  const expn::warp::Scratch<K> ws(
+      wbuf + (threadIdx.x >> 5) * expn::warp::scratch_words<K>());
+  const int lane = threadIdx.x & 31;
   if constexpr (K >= 3) expn::warp::init_codes<K>(ws, lane);
-  if (lane < K) {
-    ws.x[lane] = a[lane];
-    ws.y[lane] = b[lane];
+  for (int i = lane; i < K; i += 32) {
+    ws.x[i] = a[i];
+    ws.y[i] = b[i];
   }
   long long t[4];
   for (int op = 0; op < 3; ++op) {
@@ -104,15 +113,15 @@ __global__ void latency_warp(const double* a, const double* b, double* out,
                   : op == 1 ? expn::warp::add<K>(ws, lane)
                             : expn::warp::add_f64<K>(ws, b[0], lane);
       __syncwarp();
-      if (lane < K)
-        ws.x[lane] = lane < res.j ? ws.emit[lane]
-                                  : (lane == res.j ? res.e : 0.0);
+      for (int i = lane; i < K; i += 32)
+        ws.x[i] = expn::warp::res_word<K>(ws, res, i);
     }
     __syncwarp();
     t[op + 1] = clock64();
   }
-  if (lane < K) out[lane] = ws.x[lane];
-  if (lane == 0)
+  if (threadIdx.x < 32)
+    for (int i = lane; i < K; i += 32) out[i] = ws.x[i];
+  if (threadIdx.x == 0)
     for (int i = 0; i < 3; ++i) cycles[i] = t[i + 1] - t[i];
 }
 
@@ -159,6 +168,7 @@ int main() {
   cudaMalloc(&dc, 128 * kOps * sizeof(long long));
   cudaMemcpy(da, a.data(), a.size() * sizeof(double), cudaMemcpyHostToDevice);
   cudaMemcpy(db, b.data(), b.size() * sizeof(double), cudaMemcpyHostToDevice);
+#if EXP_K <= 20
   const int smem = 128 * expn::regs::thread_words<K>() * sizeof(double);
   cudaFuncSetAttribute(latency, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        smem);
@@ -178,6 +188,7 @@ int main() {
                   "\"cycles_per_op\": %.1f}\n",
                   K, threads, kNames[i], (double)c[i] / reps);
   }
+#endif
   dadd_chain<<<1, 32>>>(da, dout, dc, 2);
   dadd_chain<<<1, 32>>>(da, dout, dc, reps);
   if (cudaDeviceSynchronize() == cudaSuccess) {
@@ -186,17 +197,27 @@ int main() {
     std::printf("{\"K\": %d, \"threads\": 32, \"op\": \"dadd\", "
                 "\"cycles_per_op\": %.1f}\n", K, (double)c / (16.0 * reps));
   }
-  if (K >= 3) {
-    latency_warp<<<1, 32>>>(da, db, dout, dc, 2);
-    latency_warp<<<1, 32>>>(da, db, dout, dc, reps);
-    if (cudaDeviceSynchronize() != cudaSuccess) return 1;
+  const int wsmem = 8 * expn::warp::scratch_words<K>() * sizeof(double);
+  cudaFuncSetAttribute(latency_warp,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, wsmem);
+  for (int warps : {1, 8}) {
+    if (K < 3 || (warps > 1 && K <= expn::kThreadMaxWords)) break;
+    const int reps_w = K > expn::kThreadMaxWords ? 8 : reps;
+    const int bytes = warps * expn::warp::scratch_words<K>() * sizeof(double);
+    latency_warp<<<1, 32 * warps, bytes>>>(da, db, dout, dc, 2);
+    latency_warp<<<1, 32 * warps, bytes>>>(da, db, dout, dc, reps_w);
+    const cudaError_t err = cudaDeviceSynchronize();
+    if (err != cudaSuccess) {
+      std::printf("{\"error\": \"%s\"}\n", cudaGetErrorString(err));
+      return 1;
+    }
     std::vector<long long> c(3);
     cudaMemcpy(c.data(), dc, 3 * sizeof(long long), cudaMemcpyDeviceToHost);
     const char* const names[3] = {"warp_mul", "warp_add", "warp_add_f64"};
     for (int i = 0; i < 3; ++i)
-      std::printf("{\"K\": %d, \"threads\": 32, \"op\": \"%s\", "
-                  "\"cycles_per_op\": %.1f}\n",
-                  K, names[i], (double)c[i] / reps);
+      std::printf("{\"K\": %d, \"threads\": 32, \"warps\": %d, "
+                  "\"op\": \"%s\", \"cycles_per_op\": %.1f}\n",
+                  K, warps, names[i], (double)c[i] / reps_w);
   }
   return 0;
 }

@@ -1,6 +1,9 @@
 // Float64 word expansions: the column loops of the expansion Cholesky
-// and triangular substitution, one thread block at a time.  The bodies
-// of csrc/expansion_chol.cu and csrc/expansion_solve.cu.
+// and triangular substitution, one thread block at a time (up to K =
+// kThreadMaxWords) or one warp of a thread-block cluster at a time
+// (above it: chol_cluster_warp, solve_cluster_warp, at the end of this
+// file).  The bodies of csrc/expansion_chol.cu and
+// csrc/expansion_solve.cu.
 //
 // chol_panel_block and solve_block are what ONE block of a kernel does,
 // written against a thread index ``tid`` of ``nthreads``, the block
@@ -23,7 +26,8 @@
 // tests/test_torch_expansion_panels.py compiles this header with g++
 // (-ffp-contract=off) and runs each block with one host thread per CUDA
 // thread, std::barrier for the barriers and an exchange through memory
-// for the shuffle, against the plain loops.
+// for the shuffle, against the plain loops;
+// tests/test_torch_expansion_panels_wide.py does so for the clusters.
 
 #pragma once
 
@@ -46,6 +50,24 @@
 #endif
 #ifndef EXP_SYNC_WARP
 #define EXP_SYNC_WARP() __syncwarp()
+#endif
+// The cluster's barrier (above K = 20), its arrive and its wait.
+#ifndef EXP_CLUSTER_ARRIVE
+#ifdef __CUDACC__
+#define EXP_CLUSTER_ARRIVE()                              \
+  do {                                                    \
+    __threadfence();                                      \
+    asm volatile("barrier.cluster.arrive;" ::: "memory"); \
+  } while (0)
+#define EXP_CLUSTER_WAIT()                              \
+  do {                                                  \
+    asm volatile("barrier.cluster.wait;" ::: "memory"); \
+    __threadfence();                                    \
+  } while (0)
+#else
+#define EXP_CLUSTER_ARRIVE() ((void)0)
+#define EXP_CLUSTER_WAIT() ((void)0)
+#endif
 #endif
 
 namespace expn {
@@ -554,13 +576,54 @@ EXP_BLOCK void solve_block(const double* L, const double* B,
 }
 
 // ---------------------------------------------------------------------------
-// Above K = kThreadMaxWords: every operation a value a warp
+// Above K = kThreadMaxWords: every operation a value a warp, a step's
+// operations spread over the warps of a thread-block cluster
 // ---------------------------------------------------------------------------
 
-// A thread's operands alone at K = 54 are 216 registers, so above
-// K = 20 the column loops run every operation on a warp
-// (expansion_warp.cuh), one after another; these paths are held to the
-// plain loops' bits, not tuned.
+// A thread's operands alone at K = 54 are 216 registers, so above K = 20
+// the column loops run every operation on a warp (expansion_warp.cuh).
+// Such an operation is slow, and its time is fixed: a product's VecSum
+// chain runs over mul_terms<K>() words (574 at K = 23, 3,023 at K = 54)
+// in an order that the bits fix.  Its scratch (warp::scratch_words: 6.2
+// KB at K = 23, 27.5 KB at K = 54) lets one SM hold only a few of them.
+// So the loops below run the operations that do not wait for each other
+// on many warps at once, over several SMs: the G warps of a thread-block
+// cluster, warp g = block rank * warps a block + warp in the block.
+//
+// The warps of a cluster exchange what they share (a panel's entries,
+// its multipliers and pivots; a column's terms and x) through global
+// memory, ordered by the cluster's barrier, split into its arrive and its
+// wait: release and acquire at cluster scope, with a fence at the card's
+// scope beside each.  Another block's shared memory would save an L2
+// round trip, small beside a warp operation (a product takes 96,366
+// cycles at K = 23 and 458,083 at K = 54: csrc/expansion_latency.cu), and
+// a block's shared memory is its warps' scratch, which is what bounds
+// the warps an SM holds; the panel itself is too large for it at any K
+// here.  A cluster's blocks are resident together, so its barrier cannot
+// wait on a block that has yet to start; it waits for the threads that
+// have not exited, so a warp with no part to play exits.  Clusters share
+// nothing.
+
+EXP_BLOCK void cluster_sync() {
+  EXP_CLUSTER_ARRIVE();
+  EXP_CLUSTER_WAIT();
+}
+
+// Shared memory of a block of the cluster Cholesky, in doubles: its
+// ``warps`` warps' scratch, then the pivot warp's slots (used by the
+// first block only).
+template <int K>
+EXP_HD constexpr long chol_cluster_smem_words(int warps) {
+  return (long)warps * warp::scratch_words<K>() + (long)K * kPivotSlots;
+}
+
+// Global memory a cluster of the Cholesky exchanges through, in doubles:
+// the rows' multipliers and their final words of the step's column, then
+// the pivots ([t & 1]: d, then 1/d).
+template <int K>
+EXP_HD constexpr long chol_cluster_share_words(int rows) {
+  return (long)K * (2 * rows + 4);
+}
 
 // Warp operation on the operands ws.x, ws.y (already written and
 // synchronized): its result's words to ``dst`` (K words; may be an
@@ -588,145 +651,221 @@ EXP_BLOCK void warp_operands(const warp::Scratch<K>& ws, const double* x,
   EXP_SYNC_WARP();
 }
 
-// Shared memory of a Cholesky block above kThreadMaxWords, in doubles:
-// each warp's scratch, then the rows' multipliers and final words of the
-// step's column, the pivots and the pivot warp's slots.
+// Step t's rows on update warp e of U (chol_panel_cluster): rows t, t +
+// 1, ... in turn (one each while U covers them), then the rows above t.
+// A row writes its final word of column t - 1, kept a step in ``fin``,
+// then forms its multiplier of column t (by 1/d) into ``mult`` and its
+// final word of column t: the W - t zero additions of the masked update,
+// until one leaves the value unchanged.
 template <int K>
-EXP_HD constexpr long chol_warps_smem_words(int rows, int nthreads) {
-  return (long)(nthreads / 32) * warp::scratch_words<K>() +
-         (long)K * (2 * rows + 4 + kPivotSlots);
+EXP_BLOCK void chol_cluster_rows(const warp::Scratch<K>& ws, double* diag,
+                                 double* tile, double* mult, double* fin,
+                                 const double* d, int W, int rows, int t,
+                                 int e, int U, int lane) {
+  const auto mul = [&] { return warp::mul<K>(ws, lane); };
+  const auto add = [&] { return warp::add<K>(ws, lane); };
+#pragma unroll 1
+  for (int j = e; j < rows; j += U) {
+    const int u = (t + j) % rows;
+    double* f = fin + (long)u * K;
+    if (t >= 1) {
+      double* x = panel_entry<K>(diag, tile, W, u, t - 1);
+      for (int i = lane; i < K; i += 32) x[i] = f[i];
+    }
+    EXP_SYNC_WARP();
+    if (u < t) {
+      for (int i = lane; i < K; i += 32) f[i] = 0.0;
+      EXP_SYNC_WARP();
+      continue;
+    }
+    if (u == t) {
+      for (int i = lane; i < K; i += 32) f[i] = d[i];
+      EXP_SYNC_WARP();
+    } else {
+      warp_operands<K>(ws, panel_entry<K>(diag, tile, W, u, t), d + K, false,
+                       lane);
+      warp_op_to<K>(ws, mul, f, false, lane);
+    }
+    for (int i = lane; i < K; i += 32) mult[(long)u * K + i] = f[i];
+#pragma unroll 1
+    for (int z = 0; z < W - t; ++z) {
+      warp_operands<K>(ws, f, nullptr, false, lane);
+      const warp::Res r = add();
+      EXP_SYNC_WARP();
+      // every word's bits compared, the loads independent of each other
+      long long diff = 0;
+      for (int i = 0; i < K; ++i)
+        diff |= word_bits(warp::res_word<K>(ws, r, i)) ^ word_bits(f[i]);
+      EXP_SYNC_WARP();  // every lane has compared
+      if (diff == 0) break;
+      for (int i = lane; i < K; i += 32) f[i] = warp::res_word<K>(ws, r, i);
+      EXP_SYNC_WARP();
+    }
+  }
 }
 
-// chol_panel_block above kThreadMaxWords: the same schedule (the pivot
-// warp a step ahead, one block barrier a step, the update warps' own
-// barrier between the multipliers and the update), with the update
-// threads' work on the update warps: warp w takes rows w, w + nw, ...
-// (each row's multiplier, its zero additions and its final word, kept in
-// shared memory and stored a step late) and every nw-th entry of the
-// update, each entry's product and addition a warp operation.
+// Step t's update on update warp e of U: the lower entries (r, c) of the
+// columns c > t, (t + 1, t + 1) but (the pivot warp's), in row-major
+// order, every U-th from the e-th; each e <- add(e, -mul(m_r, m_c)).
 template <int K>
-EXP_BLOCK void chol_panel_block_warps(const double* in_diag,
-                                      const double* in_tile, double* diag,
-                                      double* tile, int W, int nt, double* sh,
-                                      int tid, int nthreads) {
-  const int rows = W + nt, lane = tid & 31;
-  const warp::Scratch<K> ws(sh + (long)(tid >> 5) * warp::scratch_words<K>());
-  double* mult = sh + (long)(nthreads / 32) * warp::scratch_words<K>();
+EXP_BLOCK void chol_cluster_update(const warp::Scratch<K>& ws, double* diag,
+                                   double* tile, const double* mult, int W,
+                                   int rows, int t, int e, int U, int lane) {
+  const auto mul = [&] { return warp::mul<K>(ws, lane); };
+  const auto add = [&] { return warp::add<K>(ws, lane); };
+  int first = 0;  // the index of row r's first entry
+#pragma unroll 1
+  for (int r = t + 2; r < rows; ++r) {
+    const int cnt = (r < W ? r : W - 1) - t;  // columns t + 1 ..
+#pragma unroll 1
+    for (int k = ((e - first) % U + U) % U; k < cnt; k += U) {
+      const int c = t + 1 + k;
+      double* x = panel_entry<K>(diag, tile, W, r, c);
+      // the product's words negated into ws.y, the entry into ws.x
+      warp_operands<K>(ws, mult + (long)r * K, mult + (long)c * K, false,
+                       lane);
+      warp_op_to<K>(ws, mul, ws.y, true, lane);
+      for (int i = lane; i < K; i += 32) ws.x[i] = x[i];
+      EXP_SYNC_WARP();
+      warp_op_to<K>(ws, add, x, false, lane);
+    }
+    first += cnt;
+  }
+}
+
+// The column loop of a Cholesky panel above kThreadMaxWords, by the G
+// warps of a cluster: the matrix's rows R >= W of W columns, the first W
+// rows the pivot block, in ``diag`` and ``tile`` as chol_panel_block
+// holds them (a cluster that is not the first of its panel works on a
+// private copy of the pivot block, which it computes again).  This is
+// warp g (lane ``lane``), its scratch ``wsm``; ``slot`` (kPivotSlots x K
+// words, shared memory) is the pivot warp's, ``share``
+// (chol_cluster_share_words) the cluster's.
+//
+// The schedule is chol_panel_block's, spread over the cluster.  Warp 0,
+// the pivot warp, forms pivot t + 1 in step t from row t + 1's entries
+// (t + 1, t) and (t + 1, t + 1), as the plain loop would after step t,
+// a step ahead of the rest.  The warps from ``lead`` on, the update
+// warps, take step t's rows in turn (chol_cluster_rows), then, behind the
+// cluster's barrier, step t's update entries in turn
+// (chol_cluster_update); entry (t + 1, t + 1)'s update is the pivot
+// warp's alone.  A step ends at the cluster's barrier, where the pivot
+// warp hands pivot t + 1 over.  It arrives at the mid-step barrier as the
+// step begins, so a step takes max(pivot chain, update) and not their
+// sum.  Every entry takes its updates in the order of t, each the plain
+// loop's mul and add.  Two cluster barriers a step.  The first ``lead``
+// warps (the pivot warp, or its whole block) take no update, so that a
+// cluster of many blocks leaves the pivot's chain alone on its SM: a
+// warp operation there takes 1.15x as long beside 7 busy warps
+// (csrc/expansion_latency.cu).
+template <int K>
+EXP_BLOCK void chol_panel_cluster(const double* in_diag, const double* in_tile,
+                                  double* diag, double* tile, int W, int nt,
+                                  double* share, double* slot, double* wsm,
+                                  int g, int G, int lead, int lane) {
+  const int rows = W + nt, U = G - lead;
+  const warp::Scratch<K> ws(wsm);
+  double* mult = share;
   double* fin = mult + (long)rows * K;
-  double* piv = fin + (long)rows * K;  // [t & 1]: d, then 1/d
-  double* slot = piv + 4 * K;
-  for (long w = tid; w < (long)rows * W; w += nthreads) {
+  double* piv = fin + (long)rows * K;
+  for (long w = (long)g * 32 + lane; w < (long)rows * W;
+       w += (long)G * 32) {
     const int r = (int)(w / W), c = (int)(w % W);
     const double* src =
         r < W ? in_diag + w * K : in_tile + (w - (long)W * W) * K;
     double* dst = panel_entry<K>(diag, tile, W, r, c);
     for (int i = 0; i < K; ++i) dst[i] = src[i];
   }
-  EXP_SYNC();
-  if (tid < 32) {
-    // the pivot warp, as chol_panel_block's
-    const regs::Emit em{nullptr, 0};
-    double* wsm = sh;
-    warp::init_codes<K>(ws, tid);
-    for (int i = 0; i < K; ++i) slot[kA * K + i] = diag[i];
-    pivot_program<K>(slot, 3, pivot_ops<K>(), wsm, em, tid);
-    for (int i = 0; i < K; ++i) {
+  cluster_sync();
+  // a warp with no part in the steps exits: the cluster's barrier waits
+  // for the threads that have not, and a waiting warp would take issue
+  // slots from the pivot warp beside it
+  if (g >= 1 && g < lead) return;
+  const regs::Emit em{nullptr, 0};
+  if (g == 0) {
+    warp::init_codes<K>(ws, lane);
+    for (int i = lane; i < K; i += 32) slot[kA * K + i] = diag[i];
+    EXP_SYNC_WARP();
+    pivot_program<K>(slot, 3, pivot_ops<K>(), wsm, em, lane);
+    for (int i = lane; i < K; i += 32) {
       piv[i] = slot[kS * K + i];
       piv[K + i] = slot[kY * K + i];
     }
+  }
+  cluster_sync();
 #pragma unroll 1
-    for (int t = 0; t < W; ++t) {
-      EXP_SYNC();
+  for (int t = 0; t < W; ++t) {
+    if (g == 0) {
+      EXP_CLUSTER_ARRIVE();  // the mid-step barrier: nothing to wait for
       if (t + 1 < W) {
         const double* x1 = diag + ((long)(t + 1) * W + t) * K;
-        for (int i = 0; i < K; ++i) {
+        for (int i = lane; i < K; i += 32) {
           slot[kX1 * K + i] = x1[i];
           slot[kX2 * K + i] = x1[K + i];
         }
-        pivot_program<K>(slot, 0, pivot_ops<K>(), wsm, em, tid);
+        EXP_SYNC_WARP();
+        pivot_program<K>(slot, 0, pivot_ops<K>(), wsm, em, lane);
         double* nxt = piv + ((t + 1) & 1) * 2 * K;
-        for (int i = 0; i < K; ++i) {
+        for (int i = lane; i < K; i += 32) {
           nxt[i] = slot[kS * K + i];
           nxt[K + i] = slot[kY * K + i];
         }
       }
+      EXP_CLUSTER_WAIT();
+    } else {
+      if (g >= lead)
+        chol_cluster_rows<K>(ws, diag, tile, mult, fin,
+                             piv + (t & 1) * 2 * K, W, rows, t, g - lead, U,
+                             lane);
+      cluster_sync();  // every row's multiplier is out
+      if (g >= lead)
+        chol_cluster_update<K>(ws, diag, tile, mult, W, rows, t, g - lead, U,
+                               lane);
     }
-    return;
+    cluster_sync();
   }
-  // the update warps
-  const int uw = (tid >> 5) - 1, nw = nthreads / 32 - 1;
-#pragma unroll 1
-  for (int t = 0; t < W; ++t) {
-    EXP_SYNC();
-    const double* d = piv + (t & 1) * 2 * K;
-#pragma unroll 1
-    for (int u = uw; u < rows; u += nw) {
-      double* f = fin + (long)u * K;
-      if (t >= 1) {
-        double* e = panel_entry<K>(diag, tile, W, u, t - 1);
-        for (int i = lane; i < K; i += 32) e[i] = f[i];
-      }
-      EXP_SYNC_WARP();
-      if (u < t) {
-        for (int i = lane; i < K; i += 32) f[i] = 0.0;
-        EXP_SYNC_WARP();
-        continue;
-      }
-      if (u == t) {
-        for (int i = lane; i < K; i += 32) f[i] = d[i];
-        EXP_SYNC_WARP();
-      } else {
-        warp_operands<K>(ws, panel_entry<K>(diag, tile, W, u, t), d + K,
-                         false, lane);
-        warp_op_to<K>(ws, [&] { return warp::mul<K>(ws, lane); }, f, false,
-                      lane);
-      }
-      for (int i = lane; i < K; i += 32) mult[(long)u * K + i] = f[i];
-      // the W - t zero additions, until one leaves the value unchanged
-#pragma unroll 1
-      for (int z = 0; z < W - t; ++z) {
-        warp_operands<K>(ws, f, nullptr, false, lane);
-        const warp::Res r = warp::add<K>(ws, lane);
-        EXP_SYNC_WARP();
-        bool same = true;
-        for (int i = 0; i < K; ++i)
-          same = same && word_bits(warp::res_word<K>(ws, r, i)) ==
-                             word_bits(f[i]);
-        EXP_SYNC_WARP();  // every lane has compared
-        if (same) break;
-        for (int i = lane; i < K; i += 32) f[i] = warp::res_word<K>(ws, r, i);
-        EXP_SYNC_WARP();
-      }
-    }
-    EXP_SYNC_UPDATE(nthreads - 32);
-    const int nc = W - 1 - t;
-#pragma unroll 1
-    for (long w = uw; w < (long)rows * nc; w += nw) {
-      const int r = (int)(w / nc), c = t + 1 + (int)(w % nc);
-      if (r < c || (r == t + 1 && c == t + 1)) continue;
-      double* e = panel_entry<K>(diag, tile, W, r, c);
-      // e <- add(e, -mul(m_r, m_c)): the product's words negated into
-      // ws.y, e into ws.x
-      warp_operands<K>(ws, mult + (long)r * K, mult + (long)c * K, false,
-                       lane);
-      warp_op_to<K>(ws, [&] { return warp::mul<K>(ws, lane); }, ws.y, true,
-                    lane);
-      for (int i = lane; i < K; i += 32) ws.x[i] = e[i];
-      EXP_SYNC_WARP();
-      warp_op_to<K>(ws, [&] { return warp::add<K>(ws, lane); }, e, false,
-                    lane);
-    }
-  }
-  for (int u = uw; u < rows; u += nw) {
-    double* e = panel_entry<K>(diag, tile, W, u, W - 1);
-    for (int i = lane; i < K; i += 32) e[i] = fin[(long)u * K + i];
+  for (int u = g - lead; g >= lead && u < rows; u += U) {
+    double* x = panel_entry<K>(diag, tile, W, u, W - 1);
+    for (int i = lane; i < K; i += 32) x[i] = fin[(long)u * K + i];
   }
 }
 
-// One warp's share of the substitution above kThreadMaxWords: column
-// ``col`` (< m) of X = L^-1 B (or L^-T B), L (n, n), B and X (n, m),
-// inv_d (n), every operation a warp operation on the warp's scratch
-// ``wsm``.  Per row i, in solve_block's order: the n terms mul(l_ik, x_k)
+// Warp g of cluster ``cl`` of the cluster Cholesky (csrc/
+// expansion_chol.cu): in, out (bb, R, W, K); scratch (bb, tiles - 1, W,
+// W, K), the private pivot blocks; share (bb * tiles,
+// chol_cluster_share_words(W + rt)).  Cluster b * tiles + tile, P blocks
+// of ``warps`` warps (warp g in block g / warps, whose shared memory is
+// ``sh``: chol_cluster_smem_words(warps)), takes batch element b's pivot
+// block and rows W + tile * rt ... of at most rt rows; from P = 4 blocks
+// up the pivot warp's block takes no update.
+template <int K>
+EXP_BLOCK void chol_cluster_warp(const double* in, double* out,
+                                 double* scratch, double* share, int R,
+                                 int W, int tiles, int rt, int P, int warps,
+                                 long cl, int g, double* sh, int lane) {
+  const long b = cl / tiles;
+  const int tile = (int)(cl % tiles);
+  const long panel = (long)R * W * K;
+  const double* in_b = in + b * panel;
+  double* out_b = out + b * panel;
+  const int row0 = W + tile * rt;
+  const int nt = R - row0 < rt ? R - row0 : rt;
+  double* diag = tile == 0 ? out_b
+                           : scratch + (b * (tiles - 1) + tile - 1) * W * W * K;
+  const long words = warp::scratch_words<K>();
+  chol_panel_cluster<K>(in_b, in_b + (long)row0 * W * K, diag,
+                        out_b + (long)row0 * W * K, W, nt > 0 ? nt : 0,
+                        share + cl * chol_cluster_share_words<K>(
+                                         W + (R > W ? rt : 0)),
+                        sh + warps * words, sh + (g % warps) * words, g,
+                        P * warps, P >= 4 ? warps : 1, lane);
+}
+
+// One warp's share of the substitution above kThreadMaxWords where the
+// columns fill the card (wc = 1): column ``col`` (< m) of X = L^-1 B (or
+// L^-T B), L (n, n), B and X (n, m), inv_d (n), every operation a warp
+// operation on the warp's scratch ``wsm``, one after another.  Per row
+// i, in solve_block's order: the n terms mul(l_ik, x_k)
 // (+0 where k is masked, as the plain loop's mul(+0, +0)) into ``tree``
 // (n x K words of the column's own), their sum by mp/core.py sum_'s tree
 // (a[p] + a[p + h], a pair of +0 values skipped, an odd last term
@@ -789,5 +928,234 @@ EXP_BLOCK void solve_column_warp(const double* L, const double* B,
                   lane);
   }
 }
+
+// Warp q's share of column ``col`` of X = L^-1 B (or L^-T B) above
+// kThreadMaxWords, as one of the column's wc > 1 warps (they lie in one
+// cluster and meet at its barrier): L (n, n), B and X (n, m), inv_d (n)
+// values of K words.
+// Per row i, in solve_block's order: the n terms mul(l_ik, x_k) (+0
+// where k is masked, as the plain loop's mul(+0, +0)) into ``tree``,
+// their sum by
+// mp/core.py sum_'s tree (a[p] + a[p + h] by the warp that holds term p,
+// in place, a pair of +0 values skipped, an odd last term carried to
+// index h), a level at a time behind the column's barrier; then x_i =
+// mul(add(b_i, -sum), inv_d_i) into X, from where the rows below read it.
+//
+// The schedule.  The root warp forms each x; the terms go to the leaf
+// warps in turn (term p to leaf warp p mod the leaf warps).  Step
+// s's row i (the row before it i'): in phase A the root forms x_i' while
+// each leaf warp forms one of its terms of row i that does not need x_i'
+// (and +0 for the masked ones); in phase B, behind the column's barrier,
+// term i' (the one that needs x_i') and the rest; then the tree.  So a
+// row costs the later of x_i' and one product, a product, and the tree's
+// log2(n) additions: with two terms a leaf warp (wc = 1 + n / 2), two
+// dependent products a row.  Where the root would cost more products a
+// row without terms of its own (small wc), it also takes terms and forms
+// its own in phase B.  Phase A of step n forms the last x.  ``tree`` holds
+// two rows' terms (2 n x K words), as the root reads one row's sum while
+// the leaf warps write the next row's terms.
+template <int K>
+EXP_BLOCK void solve_column_warps(const double* L, const double* B,
+                                  const double* inv_d, double* X,
+                                  double* tree, int n, int m, int col,
+                                  int q, int wc, bool transpose,
+                                  double* wsm, int lane) {
+  const warp::Scratch<K> ws(wsm);
+  const auto mul = [&] { return warp::mul<K>(ws, lane); };
+  const auto add = [&] { return warp::add<K>(ws, lane); };
+  // every word +0: the leading word alone decides most values, the rest
+  // are read at once
+  auto pos_zero = [&](const double* v) {
+    if (word_bits(v[0]) != 0) return false;
+    long long bits = 0;
+    for (int t = 1; t < K; ++t) bits |= word_bits(v[t]);
+    return bits == 0;
+  };
+  // The root is the column's last warp (alone in its block where the
+  // column spans blocks).  It holds no terms where that costs no more
+  // dependent products a row: ceil(n / (wc - 1)) against 1 + ceil(n /
+  // wc).
+  const bool leafless = (n + wc - 2) / (wc - 1) <= 1 + (n + wc - 1) / wc;
+  const int leaves = leafless ? wc - 1 : wc;
+  const bool is_root = q == wc - 1;
+  const int lq = leafless && is_root ? -1 : q;  // leaf index, or -1
+  auto row_of = [&](int s) { return transpose ? n - 1 - s : s; };
+  auto live = [&](int i, int p) { return transpose ? p > i : p < i; };
+  // term p of row i into v
+  auto form_term = [&](int i, int p, double* v) {
+    warp_operands<K>(
+        ws, L + (transpose ? (long)p * n + i : (long)i * n + p) * K,
+        X + ((long)p * m + col) * K, false, lane);
+    warp_op_to<K>(ws, mul, v, false, lane);
+  };
+#pragma unroll 1
+  for (int s = 0; s <= n; ++s) {
+    const int i = row_of(s < n ? s : 0), prev = s >= 1 ? row_of(s - 1) : -1;
+    double* tr = tree + (long)(s & 1) * n * K;
+    // phase A
+    if (is_root && s >= 1) {
+      const double* sum = tree + (long)((s - 1) & 1) * n * K;
+      double* xp = X + ((long)prev * m + col) * K;
+      warp_operands<K>(ws, B + ((long)prev * m + col) * K, sum, true, lane);
+      warp_op_to<K>(ws, add, xp, false, lane);
+      warp_operands<K>(ws, xp, inv_d + (long)prev * K, false, lane);
+      warp_op_to<K>(ws, mul, xp, false, lane);
+    }
+    if (s < n && lq >= 0 && !(is_root && s >= 1)) {
+      bool one = false;
+#pragma unroll 1
+      for (int p = lq; p < n; p += leaves) {
+        if (!live(i, p)) {
+          for (int t = lane; t < K; t += 32) tr[(long)p * K + t] = 0.0;
+          EXP_SYNC_WARP();
+        } else if (p != prev && !one) {
+          form_term(i, p, tr + (long)p * K);
+          one = true;
+        }
+      }
+    }
+    cluster_sync();  // x_i' is out; phase A's terms are
+    if (s == n) break;
+    // phase B: term i' first, then the terms phase A left (all of the
+    // root's, which formed x_i' there)
+    if (lq >= 0) {
+      if (prev >= 0 && prev % leaves == lq)
+        form_term(i, prev, tr + (long)prev * K);
+      const bool root = is_root && s >= 1;
+      bool skip = !root;  // phase A formed the first
+#pragma unroll 1
+      for (int p = lq; p < n; p += leaves) {
+        if (!live(i, p)) {
+          if (root) {
+            for (int t = lane; t < K; t += 32) tr[(long)p * K + t] = 0.0;
+            EXP_SYNC_WARP();
+          }
+        } else if (p != prev) {
+          if (skip)
+            skip = false;
+          else
+            form_term(i, p, tr + (long)p * K);
+        }
+      }
+    }
+    // every term is out (not needed where the first level's pairs are
+    // each one warp's own terms)
+    if ((n / 2) % leaves != 0) cluster_sync();
+#pragma unroll 1
+    for (int len = n; len > 1;) {
+      const int h = len / 2, odd = len & 1;
+      if (lq >= 0) {
+#pragma unroll 1
+        for (int p = lq; p < h; p += leaves) {
+          double* v = tr + (long)p * K;
+          const double* w = tr + (long)(p + h) * K;
+          if (pos_zero(v) && pos_zero(w)) continue;
+          warp_operands<K>(ws, v, w, false, lane);
+          warp_op_to<K>(ws, add, v, false, lane);
+        }
+      }
+      cluster_sync();  // the level's pairs are read and written
+      if (odd) {
+        if (lq >= 0 && h % leaves == lq) {
+          for (int t = lane; t < K; t += 32)
+            tr[(long)h * K + t] = tr[(long)2 * h * K + t];
+        }
+        cluster_sync();
+      }
+      len = h + odd;
+    }
+  }
+}
+
+// Blocks of a cluster of the solve for wc warps a column: enough blocks
+// of ``warps`` warps to hold a column's, or one block of several
+// columns.
+EXP_HD int solve_cluster_blocks(int wc, int warps) {
+  return wc > warps ? (wc + warps - 1) / warps : 1;
+}
+
+// Warp gw of cluster ``cl`` of the solve (csrc/expansion_solve.cu): L
+// (bb, n, n, K), B and X (bb, n, m, K), inv_d (bb, n, K), tree (bb * m,
+// 2n, K), or (bb * m, n, K) for wc = 1; wc warps a column, clusters of
+// P = solve_cluster_blocks(wc, warps) blocks of ``warps`` warps, each
+// cluster P * warps / wc of the bb * m columns (warp gw's scratch
+// ``wsm``; the rest of its warps exit).
+template <int K>
+EXP_BLOCK void solve_cluster_warp(const double* L, const double* B,
+                                  const double* inv_d, double* X,
+                                  double* tree, int bb, int n, int m, int wc,
+                                  int warps, bool transpose, long cl, int gw,
+                                  double* wsm, int lane) {
+  const int cpc = solve_cluster_blocks(wc, warps) * warps / wc;
+  const long colid = cl * cpc + gw / wc;
+  // a warp of no column exits: the cluster's barrier waits for the
+  // threads that have not
+  if (gw / wc >= cpc || colid >= (long)bb * m) return;
+  const long b = colid / m, nm = (long)n * m * K;
+  const int col = (int)(colid % m);
+  if (wc == 1)
+    solve_column_warp<K>(L + b * n * n * K, B + b * nm, inv_d + b * n * K,
+                         X + b * nm, tree + colid * n * K, n, m, col,
+                         transpose, wsm, lane);
+  else
+    solve_column_warps<K>(L + b * n * n * K, B + b * nm, inv_d + b * n * K,
+                          X + b * nm, tree + colid * 2 * n * K, n, m, col,
+                          gw % wc, wc, transpose, wsm, lane);
+}
+
+#ifdef __CUDACC__
+// Clusters of P blocks of ``threads`` threads and ``smem`` bytes of
+// dynamic shared memory of ``kernel`` that the card holds at once (its
+// registers and shared memory, and the GPCs the clusters pack into), or
+// a negative CUDA error.
+template <class... Params>
+inline int max_clusters(void (*kernel)(Params...), int threads, int P,
+                        size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  return err == cudaSuccess ? clusters : -(int)err;
+}
+
+// Launches ``kernel`` on ``blocks`` blocks of ``threads`` threads with
+// ``smem`` bytes of dynamic shared memory each, in clusters of P blocks
+// (consecutive blockIdx.x; block rank blockIdx.x % P); the launch's error.
+template <class... Params, class... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Params...), long blocks,
+                                  int threads, int P, size_t smem,
+                                  void* stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+#endif
 
 }  // namespace expn

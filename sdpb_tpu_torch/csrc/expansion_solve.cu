@@ -35,6 +35,21 @@
 // warps a block; the operations keep their words in registers or the
 // thread's shared-memory scratch: no local memory, no spill at any K.
 //
+// Above K = kThreadMaxWords = 20 every operation is a value a warp, and
+// a warp operation there is slow and bound by its own chains
+// (expansion_panels.cuh), so while the columns leave the card idle a
+// column runs on wc warps of a thread-block cluster (solve_column_warps:
+// a root warp forms each x, the leaf warps form the row's terms at once,
+// the next row's that do not need the new x while it forms, and the
+// tree's pairs a level at a time), which meet at the cluster's barrier
+// and share the terms and X through global memory.  With two terms a
+// leaf warp (wc = 1 + n / 2) a row costs two dependent products and
+// log2(n) + 1 additions, not n products and n - 1 additions.  Where the
+// columns fill the card (the full-width solves, bb * m in the thousands)
+// a column stays on one warp, every operation one after another
+// (solve_column_warp).  ops/expansion_kernels.py solve_column_warps
+// picks wc from the batch and the clusters the card holds at once.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -fmad=false -c -Xcompiler -fPIC -DEXP_K=<K>
 //        (see ops/expansion_kernels.py)
@@ -66,25 +81,39 @@ __global__ void __launch_bounds__(kThreads, 1)
                        G, transpose != 0, sh, threadIdx.x, kThreads);
 }
 
-// Above K = kThreadMaxWords (expansion_panels.cuh solve_column_warp): a
-// warp a right-hand-side column, kThreads / 32 columns a block, every
-// operation a warp operation; ``tree`` (bb, m, n, K) holds each column's
-// terms.
+// Above K = kThreadMaxWords: warps a block, and blocks a cluster at
+// most (the portable cluster size).  Four warps a block spread a
+// column's leaf warps thinner over the SMs than eight (a product beside
+// 7 busy warps takes 1.15x its time alone: csrc/expansion_latency.cu)
+// and let the root warp sit in a block of its own.
+constexpr int kWarps = 4;
+constexpr int kMaxCluster = 8;
+
+// Above K = kThreadMaxWords (expansion_panels.cuh solve_cluster_warp):
+// wc warps a right-hand-side column, in clusters of P =
+// solve_cluster_blocks(wc, kWarps) blocks, each cluster P * kWarps / wc
+// columns of the bb * m; ``tree`` holds each column's terms.
+// Blocks an SM holds, as many as the warps' scratch leaves room for (up
+// to 8): the bound on the kernel's registers that lets them all in.
 template <int K>
-__global__ void __launch_bounds__(kThreads)
+constexpr int solve_blocks_per_sm() {
+  const long fit = 232448L / (kWarps * expn::warp::scratch_words<K>() *
+                              (long)sizeof(double));
+  return fit < 1 ? 1 : fit > 8 ? 8 : (int)fit;
+}
+
+template <int K>
+__global__ void __launch_bounds__(kWarps * 32, solve_blocks_per_sm<K>())
     exp_solve_warps_kernel(const double* __restrict__ L,
                            const double* __restrict__ B,
                            const double* __restrict__ inv_d, double* X,
-                           double* tree, int n, int m, int tiles,
+                           double* tree, int bb, int n, int m, int wc,
                            int transpose) {
   extern __shared__ double sh[];
-  const int b = blockIdx.x / tiles, tile = blockIdx.x % tiles;
-  const int col = tile * (kThreads / 32) + (threadIdx.x >> 5);
-  if (col >= m) return;
-  const long nm = (long)n * m * K;
-  expn::solve_column_warp<K>(
-      L + (long)b * n * n * K, B + b * nm, inv_d + (long)b * n * K, X + b * nm,
-      tree + ((long)b * m + col) * n * K, n, m, col, transpose != 0,
+  const int P = expn::solve_cluster_blocks(wc, kWarps);
+  expn::solve_cluster_warp<K>(
+      L, B, inv_d, X, tree, bb, n, m, wc, kWarps, transpose != 0,
+      blockIdx.x / P, (blockIdx.x % P) * kWarps + (threadIdx.x >> 5),
       sh + (threadIdx.x >> 5) * expn::warp::scratch_words<K>(),
       threadIdx.x & 31);
 }
@@ -100,27 +129,34 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 #if EXP_K > 20
-// tree: (bb, m, n, K) scratch of the column's terms.
+// tree: (bb, m, 2n, K) scratch of the columns' terms ((bb, m, n, K) for
+// wc = 1); wc: warps a column (at most kWarps * kMaxCluster).
 int EXP_PASTE(expansion_solve_warps_k, EXP_K)(const double* L,
                                               const double* B,
                                               const double* inv_d, double* X,
                                               double* tree, int bb, int n,
-                                              int m, int transpose,
+                                              int m, int wc, int transpose,
                                               void* stream) {
-  if (bb < 1 || n < 1 || m < 1 || tree == nullptr ||
-      EXP_K > expn::kMaxWords)
+  if (bb < 1 || n < 1 || m < 1 || tree == nullptr || wc < 1 ||
+      wc > kWarps * kMaxCluster || EXP_K > expn::kMaxWords)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(kThreads / 32) *
-                      expn::warp::scratch_words<EXP_K>() * sizeof(double);
-  const cudaError_t err = cudaFuncSetAttribute(
-      exp_solve_warps_kernel<EXP_K>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (m + kThreads / 32 - 1) / (kThreads / 32);
-  exp_solve_warps_kernel<EXP_K><<<bb * tiles, kThreads, smem,
-                                  (cudaStream_t)stream>>>(
-      L, B, inv_d, X, tree, n, m, tiles, transpose);
-  return (int)cudaGetLastError();
+  const int P = expn::solve_cluster_blocks(wc, kWarps);
+  const int cpc = P * kWarps / wc;  // columns a cluster
+  const long clusters = ((long)bb * m + cpc - 1) / cpc;
+  const size_t smem =
+      (size_t)kWarps * expn::warp::scratch_words<EXP_K>() * sizeof(double);
+  return (int)expn::launch_cluster(exp_solve_warps_kernel<EXP_K>,
+                                   clusters * P, kWarps * 32, P, smem, stream,
+                                   L, B, inv_d, X, tree, bb, n, m, wc,
+                                   transpose);
+}
+
+// Clusters of P blocks of the kernel that the card holds at once, or a
+// negative CUDA error.
+int EXP_PASTE(expansion_solve_warps_clusters_k, EXP_K)(int P) {
+  return expn::max_clusters(
+      exp_solve_warps_kernel<EXP_K>, kWarps * 32, P,
+      (size_t)kWarps * expn::warp::scratch_words<EXP_K>() * sizeof(double));
 }
 #else
 int EXP_PASTE(expansion_solve_k, EXP_K)(const double* L, const double* B,

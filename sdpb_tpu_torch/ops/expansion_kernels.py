@@ -18,10 +18,12 @@ loop of the expansion Cholesky and of the triangular substitution per
 launch (``csrc/expansion_chol.cu``, ``csrc/expansion_solve.cu`` over
 ``csrc/expansion_panels.cuh``: a Cholesky's pivots on a warp of their
 own ahead of the update; up to THREAD_MAX_WORDS the rest a value per
-thread, above it every operation on a warp), where the JAX package's
-``fori_loop``s are one XLA program.  Their plain versions,
-``cholesky_panel_plain`` and ``solve_unblocked_plain``, are the loops
-over the elementwise operations.
+thread; above it every operation on a warp, a step's operations spread
+over the warps of a thread-block cluster: chol_cluster_blocks and
+solve_column_warps), where the JAX package's ``fori_loop``s are one XLA
+program.  Their plain versions, ``cholesky_panel_plain`` and
+``solve_unblocked_plain``, are the loops over the elementwise
+operations.
 
 Each unit is compiled with ``nvcc`` at first use (``-DEXP_K``): once for
 every K in 1..THREAD_MAX_WORDS, all at once and linked into one shared
@@ -90,6 +92,11 @@ CHOL_ROW_TILE = 32
 # fill the card, and a row costs a warp two products for twice the
 # columns.
 SOLVE_LATENCY_GROUPS = 1024
+# Above THREAD_MAX_WORDS (csrc/expansion_solve.cu kWarps, and
+# kMaxCluster of both column loops): warps a block of the solve, and
+# blocks a thread-block cluster at most.
+SOLVE_BLOCK_WARPS = 4
+CLUSTER_MAX_BLOCKS = 8
 
 _OPS = {"exp_add": 0, "exp_mul": 1, "exp_div": 2, "exp_add_f64": 3,
         "exp_mul_f64": 4}
@@ -202,14 +209,18 @@ def build(force: bool = False, k: int | None = None) -> dict:
 def _bind(lib, k: int) -> None:
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     entries = [("expansion_launch", [vp, cl, vp, cl, vp, cl, ci, ci, ci,
-                                     vp]),
-               ("expansion_chol", [vp, vp, vp, ci, ci, ci, ci, ci, vp])]
+                                     vp])]
     if k <= THREAD_MAX_WORDS:
-        entries.append(("expansion_solve", [vp, vp, vp, vp, ci, ci, ci, ci,
-                                            ci, vp]))
+        entries += [("expansion_chol", [vp, vp, vp, ci, ci, ci, ci, ci, vp]),
+                    ("expansion_solve", [vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                         vp])]
     else:
-        entries.append(("expansion_solve_warps", [vp, vp, vp, vp, vp, ci,
-                                                  ci, ci, ci, vp]))
+        entries += [("expansion_chol_warps", [vp, vp, vp, vp, ci, ci, ci, ci,
+                                              ci, ci, vp]),
+                    ("expansion_chol_warps_clusters", [ci]),
+                    ("expansion_solve_warps", [vp, vp, vp, vp, vp, ci, ci,
+                                               ci, ci, ci, vp]),
+                    ("expansion_solve_warps_clusters", [ci])]
     for name, args in entries:
         fn = getattr(lib, f"{name}_k{k}")
         fn.argtypes = args
@@ -397,11 +408,45 @@ def chol_row_tile(W: int) -> int:
     return max(1, min(CHOL_ROW_TILE, CHOL_MAX_ROWS - W))
 
 
+def _sms(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def chol_cluster_blocks(units: int, clusters) -> int:
+    """Blocks P of a Cholesky cluster above THREAD_MAX_WORDS for
+    ``units`` panels and row tiles (a cluster each): the largest power of
+    two up to CLUSTER_MAX_BLOCKS with which all of them run at once
+    (``clusters[P]``: clusters of P blocks the card holds, _clusters), at
+    least 1."""
+    p = 1
+    while p < CLUSTER_MAX_BLOCKS and units <= clusters[2 * p]:
+        p *= 2
+    return p
+
+
+_CLUSTERS = {}
+
+
+def _clusters(kernel: str, k: int) -> dict:
+    """{P: clusters of P blocks of the ``kernel`` ("chol" or "solve")
+    above THREAD_MAX_WORDS that the card holds at once at K = k}, P = 1
+    .. CLUSTER_MAX_BLOCKS."""
+    if (kernel, k) not in _CLUSTERS:
+        fn = getattr(_lib(k), f"expansion_{kernel}_warps_clusters_k{k}")
+        out = {p: fn(p) for p in range(1, CLUSTER_MAX_BLOCKS + 1)}
+        if min(out.values()) < 0:
+            raise RuntimeError(f"expansion {kernel} kernel: occupancy "
+                               f"query failed at K={k}: {out}")
+        _CLUSTERS[kernel, k] = out
+    return _CLUSTERS[kernel, k]
+
+
 def exp_cholesky_panel(c):
     """The column loop of a Cholesky panel c (BB, R, W, K) in one launch
     (``cholesky_panel_plain`` on the CPU): one block per batch element
-    and tile of chol_row_tile(W) rows below the pivot block; on the card
-    W < CHOL_MAX_ROWS (the port's panels are 32 wide, its unblocked
+    and tile of chol_row_tile(W) rows below the pivot block (above
+    THREAD_MAX_WORDS one cluster of chol_cluster_blocks blocks); on the
+    card W < CHOL_MAX_ROWS (the port's panels are 32 wide, its unblocked
     factors at most 64)."""
     if not _on_cuda("exp_cholesky_panel", c):
         return cholesky_panel_plain(c)
@@ -418,14 +463,28 @@ def exp_cholesky_panel(c):
         return out
     rt = chol_row_tile(W)
     tiles = max(1, -(-(R - W) // rt))
-    # the private pivot blocks of every block but a panel's first
+    # the private pivot blocks of every block (cluster) but a panel's first
     scratch = torch.empty(((tiles - 1) * BB, W, W, k), dtype=c.dtype,
                           device=c.device)
-    err = getattr(_lib(k), f"expansion_chol_k{k}")(
-        c.data_ptr(), out.data_ptr(),
-        scratch.data_ptr() if tiles > 1 else None, BB, R, W, tiles, rt,
-        torch.cuda.current_stream(c.device).cuda_stream)
-    key = "exp_cholesky_panel" + ("_warp" if k > THREAD_MAX_WORDS else "")
+    stream = torch.cuda.current_stream(c.device).cuda_stream
+    if k > THREAD_MAX_WORDS:
+        # each cluster's multipliers, final words and pivots
+        rows = W + (rt if R > W else 0)
+        share = torch.empty((BB * tiles, 2 * rows + 4, k), dtype=c.dtype,
+                            device=c.device)
+        err = getattr(_lib(k), f"expansion_chol_warps_k{k}")(
+            c.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if tiles > 1 else None, share.data_ptr(), BB,
+            R, W, tiles, rt, chol_cluster_blocks(BB * tiles,
+                                                 _clusters("chol", k)),
+            stream)
+        key = "exp_cholesky_panel_warp"
+    else:
+        err = getattr(_lib(k), f"expansion_chol_k{k}")(
+            c.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if tiles > 1 else None, BB, R, W, tiles, rt,
+            stream)
+        key = "exp_cholesky_panel"
     _status(key, err)
     LAUNCHES[key] += 1
     return out
@@ -443,6 +502,50 @@ def solve_lanes(bb: int, n: int, m: int) -> int:
     return max(two, 1)
 
 
+def solve_row_products(n: int, wc: int) -> int:
+    """Dependent products a row of an n-row solve costs with wc warps a
+    column (csrc/expansion_panels.cuh solve_column_warps): with a root
+    warp that holds no terms, the later of x and one term, then term
+    i' and the rest of its leaf warp's; else x, then the root's own
+    terms."""
+    if wc == 1:
+        return n + 1
+    leaf = -(-n // (wc - 1))
+    if leaf <= 1 + -(-n // wc):
+        return max(2, leaf)
+    return 1 + max(1, -(-n // wc))
+
+
+def solve_cluster_blocks(wc: int) -> int:
+    """Blocks of a solve's cluster for wc warps a column."""
+    return -(-wc // SOLVE_BLOCK_WARPS)
+
+
+def solve_column_warps(bb: int, n: int, m: int, sms: int, clusters) -> int:
+    """Warps wc of a column of a solve above THREAD_MAX_WORDS (at most
+    SOLVE_BLOCK_WARPS * CLUSTER_MAX_BLOCKS): of those with which the bb
+    * m columns' clusters all run at once (``clusters[P]``: clusters of P
+    blocks the card holds, _clusters) and, where a column takes several
+    blocks, their warps take at most 16 on each of the ``sms`` SMs
+    (beyond, the warps' contention costs more than the spread saves:
+    chip_smoke.py phase 3's sweep), the one whose row costs the fewest
+    dependent products (solve_row_products), then the fewest warps; 1 (a
+    warp a column) where the columns alone fill the card."""
+    best, cols = (n + 1, 1), bb * m
+    for wc in range(2, SOLVE_BLOCK_WARPS * CLUSTER_MAX_BLOCKS + 1):
+        p = solve_cluster_blocks(wc)
+        need = -(-cols // (p * SOLVE_BLOCK_WARPS // wc))
+        if need > clusters[p] or (
+                p > 1 and need * p * SOLVE_BLOCK_WARPS > 16 * sms):
+            continue
+        best = min(best, (solve_row_products(n, wc), wc))
+    return best[1]
+
+
+def _solve_spread(bb, n, m, k, device) -> int:
+    return solve_column_warps(bb, n, m, _sms(device), _clusters("solve", k))
+
+
 def exp_solve_unblocked(l, b, inv_d, transpose: bool = False):
     """X = L^-1 B (or L^-T B) by substitution in one launch
     (``solve_unblocked_plain`` on the CPU): l (BB, n, n, K) lower, b
@@ -450,6 +553,24 @@ def exp_solve_unblocked(l, b, inv_d, transpose: bool = False):
     card n <= 64 (the port's unblocked solves and panels)."""
     if not _on_cuda("exp_solve_unblocked", l, b, inv_d):
         return solve_unblocked_plain(l, b, inv_d, transpose)
+    BB, n, m, k = b.shape
+    if k > THREAD_MAX_WORDS:
+        return solve_warps(l, b, inv_d, transpose)
+    l, b, inv_d, out = _solve_operands(l, b, inv_d)
+    if out.numel() == 0:
+        return out
+    err = getattr(_lib(k), f"expansion_solve_k{k}")(
+        l.data_ptr(), b.data_ptr(), inv_d.data_ptr(), out.data_ptr(),
+        BB, n, m, solve_lanes(BB, n, m), int(transpose),
+        torch.cuda.current_stream(b.device).cuda_stream)
+    _status("exp_solve_unblocked", err)
+    LAUNCHES["exp_solve_unblocked"] += 1
+    return out
+
+
+def _solve_operands(l, b, inv_d):
+    """The checked, contiguous operands of a solve on the card, and its
+    output."""
     BB, n, m, k = b.shape
     if l.shape != (BB, n, n, k) or inv_d.shape != (BB, n, k):
         raise ValueError(f"exp_solve_unblocked: shapes {tuple(l.shape)}, "
@@ -459,22 +580,32 @@ def exp_solve_unblocked(l, b, inv_d, transpose: bool = False):
                          f"kernel's 64")
     check_words("exp_solve_unblocked", k)
     l, b, inv_d = l.contiguous(), b.contiguous(), inv_d.contiguous()
-    out = torch.empty_like(b)
+    return l, b, inv_d, torch.empty_like(b)
+
+
+def solve_warps(l, b, inv_d, transpose: bool, wc: int | None = None):
+    """exp_solve_unblocked on the card above THREAD_MAX_WORDS with wc
+    warps a column (up to SOLVE_BLOCK_WARPS * CLUSTER_MAX_BLOCKS; None:
+    solve_column_warps's choice; chip_smoke.py times the others against
+    it)."""
+    if not _on_cuda("exp_solve_unblocked", l, b, inv_d):
+        raise ValueError("solve_warps: a launch on the card")
+    l, b, inv_d, out = _solve_operands(l, b, inv_d)
+    BB, n, m, k = b.shape
+    if k <= THREAD_MAX_WORDS:
+        raise ValueError(f"solve_warps: K={k} runs a value a thread")
     if out.numel() == 0:
         return out
-    stream = torch.cuda.current_stream(b.device).cuda_stream
-    if k > THREAD_MAX_WORDS:
-        # a warp a column; each column's n terms in a scratch of its own
-        tree = torch.empty((BB, m, n, k), dtype=b.dtype, device=b.device)
-        err = getattr(_lib(k), f"expansion_solve_warps_k{k}")(
-            l.data_ptr(), b.data_ptr(), inv_d.data_ptr(), out.data_ptr(),
-            tree.data_ptr(), BB, n, m, int(transpose), stream)
-        key = "exp_solve_unblocked_warp"
-    else:
-        err = getattr(_lib(k), f"expansion_solve_k{k}")(
-            l.data_ptr(), b.data_ptr(), inv_d.data_ptr(), out.data_ptr(),
-            BB, n, m, solve_lanes(BB, n, m), int(transpose), stream)
-        key = "exp_solve_unblocked"
-    _status(key, err)
-    LAUNCHES[key] += 1
+    if wc is None:
+        wc = _solve_spread(BB, n, m, k, b.device)
+    # each column's terms of two rows (one for wc = 1) in a scratch of
+    # its own
+    tree = torch.empty((BB, m, (2 if wc > 1 else 1) * n, k), dtype=b.dtype,
+                       device=b.device)
+    err = getattr(_lib(k), f"expansion_solve_warps_k{k}")(
+        l.data_ptr(), b.data_ptr(), inv_d.data_ptr(), out.data_ptr(),
+        tree.data_ptr(), BB, n, m, wc, int(transpose),
+        torch.cuda.current_stream(b.device).cuda_stream)
+    _status("exp_solve_unblocked_warp", err)
+    LAUNCHES["exp_solve_unblocked_warp"] += 1
     return out
