@@ -1141,6 +1141,39 @@ class _FirstDirection:
         bit.apply_step = self._inner
 
 
+class _LayerSpans:
+    """The program's layer spans switched on (``utils/timers.py``); on
+    exit ``records`` holds them."""
+
+    def __enter__(self):
+        from sdpb_tpu_torch.utils import timers
+
+        timers.take()
+        self._setting = timers.layer_spans(True)
+        self.records = []
+        return self
+
+    def __exit__(self, *exc):
+        from sdpb_tpu_torch.utils import timers
+
+        timers.layer_spans(self._setting)
+        self.records = timers.take()[0]
+
+
+def _phase_split(timers, spans) -> dict:
+    """Seconds by the driver's residues and step spans and by the
+    solver's phase spans, summed over the iterations."""
+    split = {}
+    for name, start, stop in timers.named:
+        leaf = name.rsplit(".", 1)[-1]
+        if stop is not None and name.count(".") >= 2:
+            split[leaf] = split.get(leaf, 0.0) + (stop - start)
+    for layer, name, start, stop, _ in spans.records:
+        if layer == "phases":
+            split[name] = split.get(name, 0.0) + (stop - start) / 1e9
+    return split
+
+
 def _direction_gap(got, want):
     """max |got - want| / max |want| of dx (all blocks) and of dy, each
     value exact in mpmath (limbs or float64 words)."""
@@ -1183,7 +1216,7 @@ def phase_full(dev, iterations=1):
     timers = Timers()
     lk.reset_launches()
     t_solve = time.time()
-    with _FirstDirection() as direction:
+    with _FirstDirection() as direction, _LayerSpans() as spans:
         result = driver.solve(problem, params, state=state, timers=timers)
         torch.cuda.synchronize()
     seconds = time.time() - t_solve
@@ -1196,11 +1229,7 @@ def phase_full(dev, iterations=1):
     print(f"full width: {n_it} iterations in {seconds:.2f} s "
           f"({seconds / max(1, n_it):.2f} s/iteration) reason "
           f"{result.reason.name}", flush=True)
-    split = {}
-    for name, start, stop in timers.named:
-        leaf = name.rsplit(".", 1)[-1]
-        if stop is not None and name.count(".") >= 2:
-            split[leaf] = split.get(leaf, 0.0) + (stop - start)
+    split = _phase_split(timers, spans)
     print("full width phase split (s): " + json.dumps(
         {k: round(v, 3) for k, v in split.items()}), flush=True)
     peak = torch.cuda.max_memory_allocated()
@@ -1614,16 +1643,19 @@ def _require_launches(label, launches, names):
 
 class _LaunchCallers:
     """Counts the expansion kernels' launches by the function that asked
-    for them: the first frame outside mp/core.py and
-    ops/expansion_kernels.py (``module.function``), per kernel."""
+    for them: the first frame outside mp/core.py,
+    ops/expansion_kernels.py and utils/timers.py (``module.function``),
+    per kernel."""
 
     def __enter__(self):
         from sdpb_tpu_torch.mp import core
         from sdpb_tpu_torch.ops import expansion_kernels as ek
+        from sdpb_tpu_torch.utils import timers
 
         self.counts = {}
         self._inner = inner = ek._status
-        skip = {core.__file__, ek.__file__}
+        # the layer spans' wrapper is no caller either
+        skip = {core.__file__, ek.__file__, timers.__file__}
 
         def status(name, err):
             f = sys._getframe(1)
@@ -1805,7 +1837,7 @@ def _expansion_full(dev, limb_first, limb_direction):
     ek.reset_launches()
     t0 = time.time()
     with _FirstDirection() as direction, _LaunchCallers() as callers, \
-            _BatchHistogram() as hist:
+            _BatchHistogram() as hist, _LayerSpans() as spans:
         result = driver.solve(problem, params, state=state, timers=timers)
         torch.cuda.synchronize()
     seconds = time.time() - t0
@@ -1825,11 +1857,7 @@ def _expansion_full(dev, limb_first, limb_direction):
     if len(result.iterations) != 1:
         raise AssertionError(f"expansion full width ran "
                              f"{len(result.iterations)} iterations")
-    split = {}
-    for name, start, stop in timers.named:
-        leaf = name.rsplit(".", 1)[-1]
-        if stop is not None and name.count(".") >= 2:
-            split[leaf] = split.get(leaf, 0.0) + (stop - start)
+    split = _phase_split(timers, spans)
     got = result.iterations[0]
     worst = {}
     for keys, tol in ((("mu", "primal_objective", "dual_objective",

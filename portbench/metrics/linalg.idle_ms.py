@@ -1,0 +1,9 @@
+"""Device idle milliseconds an iteration while the innermost of the
+program's layer spans open on the host is of layer
+``linalg`` (the entries of ``mp/linalg.py``): ``portbench/layers.py``."""
+
+from portbench import layers
+
+
+def read(run):
+    return layers.idle_ms(run, "linalg")

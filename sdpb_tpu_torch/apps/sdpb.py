@@ -210,6 +210,7 @@ def _run(args, params, comm, sdp_dir, out_dir, ck_dir) -> int:
                                  intra_would_fit, max_crt_precision,
                                  shape_of_raw)
     from ..solver.params import SolverParams
+    from ..utils import timers as tracing
     from ..utils.timers import Timers, Verbosity, rotate_profiling_dir
 
     t_start = time.time()
@@ -335,6 +336,8 @@ def _run(args, params, comm, sdp_dir, out_dir, ck_dir) -> int:
             save_checkpoint(ck_dir, whole, host_problem, params)
 
     def hook(rec, cur_state):
+        if layers:
+            timers.add_layer_spans(tracing.take()[0])
         it_writer.write(rec, total_time=time.time() - t_start)
         if say:
             print(f"it {rec.iteration:3d} mu={float(rec.mu):.3e} "
@@ -356,6 +359,10 @@ def _run(args, params, comm, sdp_dir, out_dir, ck_dir) -> int:
             raise KeyboardInterrupt("SIGTERM")
 
     timers = Timers(Verbosity(min(args.verbosity, 3)))
+    # --verbosity 3: the layer spans of the whole solve, summed per span
+    # path into the profile
+    layers = timers.verbosity >= Verbosity.trace
+    setting = tracing.layer_spans(True) if layers else None
     try:
         with timers.scoped("sdpb.solve"):
             result = solve(problem, params, state=state, iteration_hook=hook,
@@ -371,6 +378,9 @@ def _run(args, params, comm, sdp_dir, out_dir, ck_dir) -> int:
     finally:
         it_writer.close()
         signal.signal(signal.SIGTERM, old_handler)
+        if layers:
+            tracing.layer_spans(setting)
+            timers.add_layer_spans(tracing.take()[0])
 
     final_state = host_state(result.state)
     runtime = int(time.time() - t_start)

@@ -28,6 +28,9 @@ import numpy as np
 import torch
 
 from . import limb as _limb
+from ..utils import timers
+
+_span = timers.span("glue")
 
 # The Dekker splitting constant 2^27 + 1 of float64 words.
 _SPLITTER = 134217729.0
@@ -372,6 +375,7 @@ def div_plain(a, b):
 # Arithmetic (dispatch: limbs, expansion kernels on the card, plain on CPU)
 # ---------------------------------------------------------------------------
 
+@_span
 def add(a, b):
     if is_limb(a):
         return _limb.add(a, b)
@@ -380,6 +384,7 @@ def add(a, b):
     return add_plain(a, b)
 
 
+@_span
 def add_f64(a, x):
     """MP + plain float tensor (x exact in the word dtype)."""
     if is_limb(a):
@@ -389,14 +394,17 @@ def add_f64(a, x):
     return add_f64_plain(a, x)
 
 
+@_span
 def neg(a):
     return -a
 
 
+@_span
 def sub(a, b):
     return add(a, -b)
 
 
+@_span
 def mul(a, b):
     if is_limb(a):
         return _limb.mul(a, b)
@@ -405,6 +413,7 @@ def mul(a, b):
     return mul_plain(a, b)
 
 
+@_span
 def mul_f64(a, x):
     """MP * plain float tensor (x exact in the word dtype)."""
     if is_limb(a):
@@ -414,6 +423,7 @@ def mul_f64(a, x):
     return mul_f64_plain(a, x)
 
 
+@_span
 def mul_scalar(a, s):
     """Multiply by a float or by an MP scalar (a tensor of K words)."""
     if torch.is_tensor(s) and s.dim() >= 1 and s.shape[-1] == a.shape[-1] \
@@ -422,6 +432,7 @@ def mul_scalar(a, s):
     return mul_f64(a, s)
 
 
+@_span
 def mul_pow2(a, c):
     """Exact multiply by (a tensor of) powers of two."""
     if is_limb(a):
@@ -429,6 +440,7 @@ def mul_pow2(a, c):
     return a * _scalar_operand(a, c)[..., None]
 
 
+@_span
 def div(a, b):
     if is_limb(a):
         return _limb.div(a, b)
@@ -437,6 +449,7 @@ def div(a, b):
     return div_plain(a, b)
 
 
+@_span
 def recip(b):
     if is_limb(b):
         return _limb.recip(b)
@@ -456,6 +469,7 @@ def newton_steps(k: int) -> int:
     return max(1, (k * WORD_BITS // (WORD_BITS - 3)).bit_length())
 
 
+@_span
 def sqrt_rsqrt(a):
     """(sqrt(a), 1/sqrt(a)): Newton on 1/sqrt from the first word's
     rsqrt, then one Heron correction for the sqrt.  Negative -> NaN."""
@@ -474,6 +488,7 @@ def sqrt_rsqrt(a):
     return s, y
 
 
+@_span
 def sqrt(a):
     return sqrt_rsqrt(a)[0]
 
@@ -482,18 +497,21 @@ def sqrt(a):
 # Comparisons / reductions
 # ---------------------------------------------------------------------------
 
+@_span
 def abs_(a):
     if is_limb(a):
         return _limb.abs_(a)
     return a * torch.where(a[..., :1] < 0, -1.0, 1.0).to(a.dtype)
 
 
+@_span
 def cmp_lt(a, b):
     if is_limb(a):
         return _limb.cmp_lt(a, b)
     return sub(a, b)[..., 0] < 0
 
 
+@_span
 def cmp_leq(a, b):
     if is_limb(a):
         return _limb.cmp_leq(a, b)
@@ -504,14 +522,17 @@ def where(pred, a, b):
     return torch.where(pred[..., None], a, b)
 
 
+@_span
 def max_(a, b):
     return where(cmp_lt(a, b), b, a)
 
 
+@_span
 def min_(a, b):
     return where(cmp_lt(a, b), a, b)
 
 
+@_span
 def max_abs(a, axes=None):
     """max |a| over the given batch axes (all by default), by the
     leading word (limbs: by the lead key)."""
@@ -533,6 +554,7 @@ def max_abs(a, axes=None):
     return torch.take_along_dim(m, idx[None, ..., None], dim=0)[0]
 
 
+@_span
 def sum_(a, axis=0):
     """MP sum-reduce along a batch axis via a binary tree of MP adds
     (the same pairing as the JAX tree, so results agree bit for bit)."""
@@ -551,6 +573,7 @@ def sum_(a, axis=0):
     return a[0]
 
 
+@_span
 def dot(a, b, axis=0):
     """MP dot product along a batch axis."""
     return sum_(mul(a, b), axis=axis)

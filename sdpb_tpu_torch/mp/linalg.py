@@ -31,6 +31,9 @@ import torch
 from . import core
 from ..ops import expansion_kernels as ek
 from ..ops import limb_kernels as lk
+from ..utils import timers
+
+_span = timers.span("linalg")
 
 # Contraction chunk of the plain limb matmul: bounds its product tensor.
 _MATMUL_CHUNK = 128
@@ -56,6 +59,7 @@ def _int_backend_ok(a_shape, p: int) -> bool:
             and batch * work >= _INT_BACKEND_MIN_WORK)
 
 
+@_span
 def matmul(a, b, transpose_a: bool = False, transpose_b: bool = False,
            vdims: int = 0):
     """Limb matrix product a @ b: (..., m, n, S) x (..., n, p, S) ->
@@ -67,8 +71,9 @@ def matmul(a, b, transpose_a: bool = False, transpose_b: bool = False,
         a = a.transpose(-3, -2)
     if transpose_b:
         b = b.transpose(-3, -2)
-    return _product(a, b, _int_backend_ok(a.shape[vdims:], b.shape[-2]),
-                    syrk)
+    crt = _int_backend_ok(a.shape[vdims:], b.shape[-2])
+    timers.route("crt" if crt else "plain")
+    return _product(a, b, crt, syrk)
 
 
 def _product(a, b, crt: bool, syrk: bool = False):
@@ -96,6 +101,7 @@ def _product(a, b, crt: bool, syrk: bool = False):
     return out
 
 
+@_span
 def matvec(a, x, transpose: bool = False, vdims: int = 0):
     """(..., n, m, S) @ (..., m, S) -> (..., n, S), through ``matmul``
     with a width-1 right operand."""
@@ -110,6 +116,7 @@ def transpose(a):
     return a.transpose(-3, -2)
 
 
+@_span
 def symmetrize(a):
     """(A + A^T)/2."""
     return core.mul_pow2(core.add(a, transpose(a)), 0.5)
@@ -119,6 +126,7 @@ def diag(a):
     return torch.diagonal(a, dim1=-3, dim2=-2).movedim(-1, -2)
 
 
+@_span
 def add_diag(a, s):
     """A + s*I for an MP scalar s (S,) or a float."""
     n = a.shape[-3]
@@ -133,11 +141,13 @@ def add_diag(a, s):
     return out
 
 
+@_span
 def trace(a):
     """Sum of the diagonal (leading batch axes kept)."""
     return core.sum_(diag(a), axis=-1)
 
 
+@_span
 def frobenius(a, b):
     """Tr(a^T b) over the trailing matrix axes (batch axes kept)."""
     prod = core.mul(a, b)
@@ -185,6 +195,7 @@ def _zero_adds(x, count: int):
     zero = core.neg(torch.zeros_like(x))
     for _ in range(count):
         y = core.add(x, zero)
+        timers.count("syncs", "linalg._zero_adds")
         if torch.equal(y.view(torch.int32), x.view(torch.int32)):
             break
         x = y
@@ -242,6 +253,7 @@ def _cholesky_limb_batched(a):
     return out[:, :n, :n] if npad else out
 
 
+@_span
 def cholesky(a):
     """Lower Cholesky of symmetric positive-definite MP matrices
     (..., n, n, K); a non-PD input gives NaNs."""
@@ -313,11 +325,13 @@ def _route_solve(l, b, transpose: bool):
     return out[..., 0, :] if vec else out
 
 
+@_span
 def solve_lower(l, b):
     """X = L^{-1} B, panel-blocked forward substitution."""
     return _route_solve(l, b, transpose=False)
 
 
+@_span
 def solve_lower_t(l, b):
     """X = L^{-T} B, panel-blocked backward substitution."""
     return _route_solve(l, b, transpose=True)
@@ -404,6 +418,7 @@ def use_inverse_panels(l) -> bool:
     return core.is_limb(l)
 
 
+@_span
 def lower_inverse(l):
     """T = L^{-1} for lower-triangular L (..., n, n, S), blocked:
     diagonal blocks invert through the solve kernel against an identity
@@ -454,17 +469,20 @@ def _lower_inverse_batched(l):
     return T[:, :n, :n] if npad else T
 
 
+@_span
 def cholesky_solve(l, b):
     """A^{-1} B given A = L L^T."""
     return solve_lower_t(l, solve_lower(l, b))
 
 
+@_span
 def lower_inverse_congruence(l, a):
     """L^{-1} A L^{-T} for symmetric A."""
     z = solve_lower(l, a)
     return transpose(solve_lower(l, transpose(z)))
 
 
+@_span
 def cholesky_condition_estimate(l):
     """(max diag / min diag)^2 over the trailing matrix (batch kept)."""
     d = core.fst(diag(l))

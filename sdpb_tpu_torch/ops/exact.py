@@ -22,6 +22,10 @@ import functools
 import numpy as np
 import torch
 
+from ..utils import timers
+
+_span = timers.span("glue")
+
 _BASE_BITS = 8
 _BASE = 1 << _BASE_BITS
 
@@ -169,6 +173,7 @@ def _mod(x, p):
     return torch.remainder(x, p)
 
 
+@_span
 def residues_split(digits, plan: CrtPlan):
     """Balanced 7-bit-split residues: digits (..., n_digits) -> (rh, rl)
     int8 of shape (..., n_primes) with r = 128*rh + rl (mod p, balanced).
@@ -200,6 +205,7 @@ def _batched_ata(a, b):
     return torch.matmul(at, bt).to(torch.int32)
 
 
+@_span
 def syrk_residues_split(r_split, plan: CrtPlan):
     """Per-prime exact A^T A from split residues (rh, rl) int8
     (..., n, m, n_primes) -> (..., n_primes, m, m) int32 in [0, p)
@@ -212,6 +218,7 @@ def syrk_residues_split(r_split, plan: CrtPlan):
     return _syrk_combine(s2, s1, s0, plan)
 
 
+@_span
 def syrk_diag_residues_split(r_split, plan: CrtPlan):
     """Independently computed per-prime diagonal of A^T A:
     (rh, rl) (n, m, n_primes) -> (n_primes, m) int32 in [0, p)."""
@@ -226,6 +233,7 @@ def syrk_diag_residues_split(r_split, plan: CrtPlan):
     return _mod(q, p).movedim(0, 1)
 
 
+@_span
 def gemm_residues_split(a_split, b_split, plan: CrtPlan):
     """Per-prime exact A^T B: (ah, al) (..., n, ma, P), (bh, bl)
     (..., n, mb, P) -> (..., P, ma, mb) int32 in [0, p)."""
@@ -239,6 +247,7 @@ def gemm_residues_split(a_split, b_split, plan: CrtPlan):
     return _syrk_combine(s2, s1, s0, plan)
 
 
+@_span
 def crt_restore_planes(q_res, plan: CrtPlan, prime_axis: int = 0):
     """CRT-restore per-prime results q_res (int32 in [0, p), primes on
     ``prime_axis``) to balanced digit planes (..., out_planes) (two

@@ -53,6 +53,9 @@ import torch
 
 from ..mp import core
 from .limb_kernels import BUILD_DIR, CSRC, NVCC_FLAGS, _nvcc, _status
+from ..utils import timers
+
+_span = timers.span("expansion_kernels")
 
 SOURCES = ("expansion.cuh", "expansion_regs.cuh", "expansion_warp.cuh",
            "expansion_panels.cuh", "expansion_elementwise.cuh",
@@ -149,6 +152,7 @@ def _library_path(k: int | None = None) -> Path:
                         f"{digest.hexdigest()[:16]}.so")
 
 
+@timers.span("build", "expansion_kernels.build")
 def build(force: bool = False, k: int | None = None) -> dict:
     """Compile the units into ``csrc/build/`` unless a library built from
     the same sources and flags exists: for k None every K in
@@ -202,6 +206,7 @@ def build(force: bool = False, k: int | None = None) -> dict:
         raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
     os.replace(tmp, lib)
+    timers.count("builds", "expansion_kernels.build")
     return {"library": str(lib), "seconds": time.time() - t0,
             "ptxas": lines, "cached": False}
 
@@ -232,6 +237,12 @@ def _lib(k: int):
     key = None if k <= THREAD_MAX_WORDS else k
     if key in _LIB:
         return _LIB[key]
+    return _load(key)
+
+
+@timers.span("build", "expansion_kernels.load")
+def _load(key: int | None):
+    timers.count("loads", "expansion_kernels.load")
     lib = ctypes.CDLL(build(k=key)["library"])
     if key is None:
         for kk in range(1, THREAD_MAX_WORDS + 1):
@@ -246,7 +257,7 @@ def _lib(k: int):
             raise RuntimeError("expansion kernel library disagrees on its "
                                "word limits or block sizes")
     else:
-        _bind(lib, k)
+        _bind(lib, key)
     _LIB[key] = lib
     return lib
 
@@ -324,26 +335,31 @@ def _with_float(name, a, x, plain, design):
 # ``design`` ("thread" or "warp") overrides elementwise_design on the card,
 # for the comparison of the two designs (chip_smoke.py phase 3).
 
+@_span
 def exp_add(a, b, design=None):
     """a + b (float64 expansions, broadcasting over the batch axes)."""
     return _binary("exp_add", a, b, core.add_plain, design)
 
 
+@_span
 def exp_mul(a, b, design=None):
     """a * b, truncated (float64 expansions, broadcasting)."""
     return _binary("exp_mul", a, b, core.mul_plain, design)
 
 
+@_span
 def exp_div(a, b, design=None):
     """a / b by long division (float64 expansions, broadcasting)."""
     return _binary("exp_div", a, b, core.div_plain, design)
 
 
+@_span
 def exp_add_f64(a, x, design=None):
     """a + x for a float64 tensor x over a's batch axes."""
     return _with_float("exp_add_f64", a, x, core.add_f64_plain, design)
 
 
+@_span
 def exp_mul_f64(a, x, design=None):
     """a * x for a float64 tensor x over a's batch axes."""
     return _with_float("exp_mul_f64", a, x, core.mul_f64_plain, design)
@@ -441,6 +457,7 @@ def _clusters(kernel: str, k: int) -> dict:
     return _CLUSTERS[kernel, k]
 
 
+@_span
 def exp_cholesky_panel(c):
     """The column loop of a Cholesky panel c (BB, R, W, K) in one launch
     (``cholesky_panel_plain`` on the CPU): one block per batch element
@@ -546,6 +563,7 @@ def _solve_spread(bb, n, m, k, device) -> int:
     return solve_column_warps(bb, n, m, _sms(device), _clusters("solve", k))
 
 
+@_span
 def exp_solve_unblocked(l, b, inv_d, transpose: bool = False):
     """X = L^-1 B (or L^-T B) by substitution in one launch
     (``solve_unblocked_plain`` on the CPU): l (BB, n, n, K) lower, b
@@ -583,6 +601,7 @@ def _solve_operands(l, b, inv_d):
     return l, b, inv_d, torch.empty_like(b)
 
 
+@_span
 def solve_warps(l, b, inv_d, transpose: bool, wc: int | None = None):
     """exp_solve_unblocked on the card above THREAD_MAX_WORDS with wc
     warps a column (up to SOLVE_BLOCK_WARPS * CLUSTER_MAX_BLOCKS; None:

@@ -40,6 +40,9 @@ from pathlib import Path
 import torch
 
 from ..mp import limb
+from ..utils import timers
+
+_span = timers.span("limb_kernels")
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -135,6 +138,7 @@ def _objects(cap: int) -> list:
     return out
 
 
+@timers.span("build", "limb_kernels.build")
 def build(classes=SLOT_CLASSES, force: bool = False) -> dict:
     """Compile the kernels of each slot class in ``classes`` into
     ``csrc/build/`` unless a library built from the same sources, flags
@@ -194,6 +198,7 @@ def build(classes=SLOT_CLASSES, force: bool = False) -> dict:
         os.replace(tmp, lib)
         out[cap].update(library=str(lib), seconds=time.time() - t0,
                         cached=False)
+        timers.count("builds", "limb_kernels.build")
     return out
 
 
@@ -203,6 +208,12 @@ def _lib(S: int):
     lo, cap = slot_class(S)
     if cap in _LIBS:
         return _LIBS[cap]
+    return _load(lo, cap)
+
+
+@timers.span("build", "limb_kernels.load")
+def _load(lo: int, cap: int):
+    timers.count("loads", "limb_kernels.load")
     lib = ctypes.CDLL(build(classes=(cap,))[cap]["library"])
     vp, ci, cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
     for R in class_regs(cap):
@@ -362,6 +373,7 @@ def solve_unblocked_plain(l, b, inv_d, transpose: bool = False):
     return out
 
 
+@_span
 def solve_unblocked_batched(l, b, inv_d, transpose: bool = False):
     """X = L^{-1} B (or L^{-T} B) for a batch of small lower-triangular
     limb systems:
@@ -424,6 +436,7 @@ def cholesky_unblocked_plain(a):
     return torch.where(lower, out, 0.0)
 
 
+@_span
 def cholesky_unblocked_batched(a):
     """Lower Cholesky of a batch of small SPD limb matrices
     (BB, n, n, S) -> (BB, n, n, S).  A non-PD pivot gives NaN limbs."""
@@ -493,16 +506,19 @@ def _elementwise(name, a, b, plain):
     return out
 
 
+@_span
 def limb_add(a, b):
     """a + b (limb format, broadcasting over the batch axes)."""
     return _elementwise("limb_add", a, b, limb.add_plain)
 
 
+@_span
 def limb_mul(a, b):
     """a * b, truncated (limb format, broadcasting)."""
     return _elementwise("limb_mul", a, b, limb.mul_plain)
 
 
+@_span
 def limb_div(a, b):
     """a / b by long division (limb format, broadcasting)."""
     return _elementwise("limb_div", a, b, limb.div_plain)

@@ -20,6 +20,9 @@ from ..mp import core as mpcore
 from ..mp import limb as mplimb
 from . import exact
 from .exact import CrtPlan
+from ..utils import timers
+
+_span = timers.span("glue")
 
 # float64 words: mantissa bits, exponent mask, bias
 _MANT, _EMASK, _BIAS = 52, 0x7FF, 1023
@@ -38,6 +41,7 @@ def _split_mantissa(w):
     return sign, m, lsb_exp
 
 
+@_span
 def exponents(x):
     """Per-element int32 e with |value| < 2^e (expansions: from the
     leading word, which carries at least half the value)."""
@@ -53,6 +57,7 @@ def pow2(e):
     return ((e.to(torch.int64) + _BIAS) << _MANT).view(torch.float64)
 
 
+@_span
 def scale_pow2(x, e):
     """x * 2^e with integer e broadcastable over the batch shape; exact
     (expansions: two half-steps keep each factor within range)."""
@@ -73,6 +78,7 @@ def _carry8(acc, passes: int):
     return acc
 
 
+@_span
 def digits_dev(x, plan: CrtPlan):
     """MP array with |values| <= 1 -> balanced int32 base-256 digits
     (..., n_digits), least significant first.  Integer-exact: each
@@ -110,6 +116,7 @@ def _plane_words_spec(plan: CrtPlan, k_out: int):
     return group, n_keep, ref_bits, P
 
 
+@_span
 def planes_to_mp_dev(planes, plan: CrtPlan, k_out: int, dtype):
     """Carry-normalized balanced digit planes (..., P) -> the MP array
     of value * 2^-(2 shift) in the format of ``dtype``."""
@@ -135,6 +142,7 @@ def _col_exponents(x):
     return exponents(x).amax(dim=-2)
 
 
+@_span
 def restore_q_mp(q_res, e_col, plan: CrtPlan, k_out: int,
                  word_dtype=torch.float32, prime_axis: int = 0):
     """CRT restore + planes -> MP words + unscaling by 2^(e_i + e_j)."""
@@ -158,6 +166,7 @@ def _poison(out, *inputs):
     return torch.where(bad[..., None, None, None], torch.nan, out)
 
 
+@_span
 def syrk_mp_batched(x, plan: CrtPlan, k_out: int | None = None):
     """Exact X^T X with leading batch dims: (..., n, m, K) ->
     (..., m, m, k_out); per-batch column scales and NaN poisoning."""
@@ -168,6 +177,7 @@ def syrk_mp_batched(x, plan: CrtPlan, k_out: int | None = None):
     return _poison(out, x)
 
 
+@_span
 def gemm_mp_batched(a, b, plan: CrtPlan, k_out: int | None = None):
     """Exact A^T B with leading batch dims: (..., n, ma, K) x
     (..., n, mb, K) -> (..., ma, mb, k_out)."""
@@ -181,6 +191,7 @@ def gemm_mp_batched(a, b, plan: CrtPlan, k_out: int | None = None):
     return _poison(out, a, b)
 
 
+@_span
 def reduce_residues_mod(q_res_sum, plan: CrtPlan):
     """Re-reduce a sum of per-prime residue arrays (leading prime axis)
     into [0, p)."""

@@ -37,6 +37,8 @@ import hashlib
 import torch
 import torch.distributed as dist
 
+from ..utils import timers
+
 #: seconds a collective waits for the other ranks before it fails
 TIMEOUT_S = 900
 
@@ -159,6 +161,7 @@ class Comm:
         64-bit checksum per rank, gathered."""
         if not self.active or self.world == 1:
             return
+        timers.count("syncs", "comm.check_replicated")
         digest = hashlib.blake2b(t.detach().cpu().numpy().tobytes(),
                                  digest_size=8).digest()
         mine = torch.tensor([int.from_bytes(digest, "little", signed=True)],

@@ -328,7 +328,7 @@ def _search(ip, state, res, minus_XY, L_S, nS, LinvB, L_Q, beta_mu, dXdY):
 
 
 def compute_step(ip: IntraProblem, state: SolverState, res, params,
-                 is_primal_and_dual_feasible: bool, timers=None):
+                 is_primal_and_dual_feasible: bool):
     """The predictor-corrector step with row-sharded blocks."""
     from ..ops import mpmm
 

@@ -28,6 +28,7 @@ import torch
 from ..mp import core as mp
 from ..mp import linalg as la
 from ..parallel.comm import Comm
+from ..utils import timers
 from . import iteration as it
 from .data import BucketedProblem, BucketedState
 
@@ -125,6 +126,7 @@ def _residues_bucket(bk, x, X, Y, y, mask=None):
     return L_X, L_Y, ax, ay, dual_res, primal_res, derr, perr, cx, bx
 
 
+@timers.span("phases", "residues")
 def compute_residues(problem: BucketedProblem,
                      state: BucketedState) -> Residues:
     comm = _comm(problem)
@@ -534,6 +536,7 @@ def conditions(problem, res, L_S, L_Q):
     the largest block one with its name, over every rank."""
     comm = _comm(problem)
     if isinstance(L_Q, torch.Tensor):
+        timers.count("syncs", "conditions.float")
         q_cond = float(la.cholesky_condition_estimate(L_Q))
     else:
         q_cond = L_Q.condition()        # parallel/mesh.py's DistLQ
@@ -544,11 +547,13 @@ def conditions(problem, res, L_S, L_Q):
             groups += [(1 + 2 * p, res.L_X[bi][p]),
                        (2 + 2 * p, res.L_Y[bi][p])]
         for kind, L in groups:
+            timers.count("syncs", "conditions.cpu")
             conds = la.cholesky_condition_estimate(L).cpu().numpy()
             for pos, j in enumerate(bk.block_indices):
                 if j >= 0 and conds[pos] > best[0]:
                     best = (float(conds[pos]), float(kind), float(j))
     if comm.active:
+        timers.count("syncs", "conditions.cpu")
         every = comm.all_gather(torch.tensor(
             best, dtype=torch.float64, device=comm.device)).cpu().numpy()
         best = tuple(every[int(np.argmax(every[:, 0]))])
@@ -559,38 +564,36 @@ def conditions(problem, res, L_S, L_Q):
 
 
 def compute_step(problem: BucketedProblem, state: BucketedState,
-                 res: Residues, params, is_primal_and_dual_feasible: bool,
-                 timers=None):
-    """The predictor-corrector step; returns (new_state, StepInfo)."""
-    import contextlib
-
-    scoped = timers.scoped if timers is not None else \
-        (lambda name: contextlib.nullcontext())
+                 res: Residues, params, is_primal_and_dual_feasible: bool):
+    """The predictor-corrector step; returns (new_state, StepInfo).  Each
+    phase is a layer span of ``phases``."""
+    phase = lambda name: timers.scope("phases", name)
     feasible = bool(is_primal_and_dual_feasible)
-    with scoped("schur"):
+    with phase("schur"):
         L_S, LinvB, L_Q = schur_factorize(
             problem, res, max_q_bytes=params.max_shared_memory_bytes)
-    with scoped("xy_mu"):
+    with phase("xy_mu"):
         minus_XY, mu, R_error, terminate_max_c = compute_xy_mu(
             problem, state, params.max_complementarity_mp())
-    with scoped("predictor"):
+    with phase("predictor"):
         beta_pred = _const(params.predictor_beta(feasible), mu)
         dx, dX, dy, dY = search_direction(
             problem, state, res, minus_XY, L_S, LinvB, L_Q,
             mp.mul(beta_pred, mu), zeros_like_XY(state))
-    with scoped("beta_pairs"):
+    with phase("beta_pairs"):
         beta_corrector = corrector_beta(
             problem, state, dX, dY, mu, feasible,
             params.feasible_centering_mp(), params.infeasible_centering_mp())
         dXdY = pair_products(problem, dX, dY)
-    with scoped("corrector"):
+    with phase("corrector"):
         dx, dX, dy, dY = search_direction(
             problem, state, res, minus_XY, L_S, LinvB, L_Q,
             mp.mul(beta_corrector, mu), dXdY)
-    with scoped("update"):
+    with phase("apply_step"):
         new_state, alpha_p, alpha_d = apply_step(
             problem, state, res, dx, dX, dy, dY, feasible,
             params.step_length_reduction)
+    with phase("conditions"):
         q_cond, max_c, max_name = conditions(problem, res, L_S, L_Q)
     info = StepInfo(mu=mu, beta_corrector=beta_corrector,
                     primal_step=alpha_p, dual_step=alpha_d,

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 from ..mp import decimal as mpdec
-from ..parallel.multihost import fetch as _np
+from ..parallel.multihost import fetch
+from ..utils import timers as tracing
 from . import bucket_iteration
 from .data import BucketedProblem, BucketedState, initial_bucketed_state
 from .params import SolverParams
@@ -75,13 +76,28 @@ class SolveResult:
     dual_error: str
 
 
+# Each read of a device value on the host waits for the device: the
+# layer spans count them as ``syncs`` by site.
+
+def _np(x):
+    tracing.count("syncs", "driver._np")
+    return fetch(x)
+
+
 def _mpf_of(words, prec) -> mpmath.mpf:
+    tracing.count("syncs", "driver._mpf_of")
     ctx = mpmath.mp.clone()
     ctx.prec = prec + 64
-    return mpdec.to_mpf(_np(words), ctx)
+    return mpdec.to_mpf(fetch(words), ctx)
+
+
+def _dec(words) -> str:
+    tracing.count("syncs", "driver.dec")
+    return mpdec.to_decimal(fetch(words))
 
 
 def _sync(device):
+    tracing.count("syncs", "driver._sync")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -114,7 +130,9 @@ def solve(problem: BucketedProblem, params: SolverParams,
           state: BucketedState | None = None, verbose: bool = False,
           iteration_hook=None, timers=None) -> SolveResult:
     """Run the interior-point loop to termination.  ``timers``
-    (utils.timers.Timers) records run.iter_<n>.{residues,step}.
+    (utils.timers.Timers) records run.iter_<n>.{residues,step}; as each
+    iteration starts, and after the hook, the layer spans follow
+    torch.profiler where their setting says so (``at_iteration``).
 
     ``problem`` is a BucketedProblem on one device, or a multi-device
     one (``parallel.mesh.MeshProblem``, blocks sharded over the ranks;
@@ -141,7 +159,6 @@ def solve(problem: BucketedProblem, params: SolverParams,
     records = []
     reason = TerminateReason.MaxIterationsExceeded
     primal_step = dual_step = 0.0
-    dec = lambda w: mpdec.to_decimal(_np(w))
     if timers is None:
         from ..utils.timers import Timers
 
@@ -151,6 +168,7 @@ def solve(problem: BucketedProblem, params: SolverParams,
     it = 0
     while True:
         it += 1
+        tracing.at_iteration()
         t0 = time.time()
         with timers.scoped(f"run.iter_{it}.residues"):
             res = it_mod.compute_residues(problem, state)
@@ -199,7 +217,7 @@ def solve(problem: BucketedProblem, params: SolverParams,
 
         with timers.scoped(f"run.iter_{it}.step"):
             state, info = it_mod.compute_step(problem, state, res, params,
-                                              feasible, timers=timers)
+                                              feasible)
             _sync(dev)
         if comm is not None:
             comm.check_replicated(state.y, f"y at iteration {it}")
@@ -216,21 +234,25 @@ def solve(problem: BucketedProblem, params: SolverParams,
                 "increasing --precision")
 
         rec = IterationRecord(
-            iteration=it, mu=dec(info.mu),
-            primal_objective=dec(res.primal_objective),
-            dual_objective=dec(res.dual_objective),
-            duality_gap=dec(res.duality_gap),
-            primal_error_P=dec(res.primal_error_P),
-            primal_error_p=dec(res.primal_error_p),
-            dual_error=dec(res.dual_error), R_error=dec(info.R_error),
+            iteration=it, mu=_dec(info.mu),
+            primal_objective=_dec(res.primal_objective),
+            dual_objective=_dec(res.dual_objective),
+            duality_gap=_dec(res.duality_gap),
+            primal_error_P=_dec(res.primal_error_P),
+            primal_error_p=_dec(res.primal_error_p),
+            dual_error=_dec(res.dual_error), R_error=_dec(info.R_error),
             primal_step=primal_step, dual_step=dual_step,
-            beta_corrector=dec(info.beta_corrector),
+            beta_corrector=_dec(info.beta_corrector),
             iter_time=time.time() - t0, q_cond=info.q_cond,
             max_block_cond=info.max_block_cond,
             max_block_cond_name=info.max_block_cond_name)
         records.append(rec)
         if iteration_hook is not None:
-            iteration_hook(rec, state)
+            try:
+                iteration_hook(rec, state)
+            finally:
+                # layer spans that follow a profiler the hook stopped
+                tracing.at_iteration()
         if verbose:
             print(f"it {it:3d} mu={float(mpmath.mpf(rec.mu)):.3e} "
                   f"gap={float(mpmath.mpf(rec.duality_gap)):.3e} "
@@ -239,8 +261,8 @@ def solve(problem: BucketedProblem, params: SolverParams,
 
     return SolveResult(
         reason=reason, state=state, iterations=records,
-        primal_objective=dec(res.primal_objective),
-        dual_objective=dec(res.dual_objective),
-        duality_gap=dec(res.duality_gap),
+        primal_objective=_dec(res.primal_objective),
+        dual_objective=_dec(res.dual_objective),
+        duality_gap=_dec(res.duality_gap),
         primal_error=mpmath.nstr(primal_error, 40),
         dual_error=mpmath.nstr(dual_error, 40))
