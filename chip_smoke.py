@@ -302,6 +302,7 @@ def phase_build():
 def _ptxas_resources(lines):
     """Registers, stack frame and spill bytes per kernel instantiation
     (template arguments R, W and, for the elementwise kernel, the op;
+    none for the digits kernel;
     K and the op for the expansion kernel; K for the expansion
     Cholesky and solve kernels and the out-of-line expansion operations
     they call, ``expn::op_mul<K>`` ...), read from the -Xptxas -v
@@ -312,14 +313,16 @@ def _ptxas_resources(lines):
                       r"for) '?(\w+)", line)
         if m:
             k = re.search(r"(chol_warp|solve_warp|elementwise_warp|"
-                          r"exp_thread|exp_warp|exp_chol_warps|"
+                          r"planes_warp|exp_thread|exp_warp|exp_chol_warps|"
                           r"exp_solve_warps|exp_chol|exp_solve)_kernelI"
                           r"((?:Li\d+E)+)E", m.group(1))
             f = re.search(r"4expn(4warp)?\d+(\w+?)ILi(\d+)E", m.group(1))
             cur = (f"{k.group(1)}_kernel<"
                    + ",".join(re.findall(r"Li(\d+)E", k.group(2))) + ">"
                    if k else f"expn::{'warp::' if f.group(1) else ''}"
-                   f"{f.group(2)}<{f.group(3)}>" if f else None)
+                   f"{f.group(2)}<{f.group(3)}>" if f else
+                   "digits_kernel" if "13digits_kernel" in m.group(1)
+                   else None)
             continue
         if cur is None:
             continue
@@ -492,6 +495,8 @@ def phase_kernels(dev):
     for n, S in ELEMENTWISE_SHAPES:
         for name, recs in _elementwise_checks(dev, rng, S, n).items():
             rows.setdefault(name, []).extend(recs)
+    for name, recs in _conversion_checks(dev, rng).items():
+        rows.setdefault(name, []).extend(recs)
     for n, k in EXPANSION_SHAPES:
         for name, recs in _expansion_checks(dev, rng, k, n).items():
             rows.setdefault(name, []).extend(recs)
@@ -579,6 +584,64 @@ def _elementwise_checks(dev, rng, S, n):
         print(f"{name} (1,{S}): bit-exact on values 0..8  kernel {call1:.4f} "
               f"ms (device {dev1:.4f} ms)  bound %.6f ms (%s)"
               % bound_ms(3 * S * 4, per_op[name]), flush=True)
+    return rows
+
+
+# The CRT pipeline's base conversions (batch, S): one nmax6 iteration's
+# digits_dev and planes_to_limb batches at --precision 400 (47 slots),
+# the first the main one, then one batch at S = 116 and 230 (the higher
+# classes' plans; 458 slots is past the prime pool).
+CONVERSION_SHAPES = (((11, 16, 16), 47), ((11, 15, 15), 47),
+                     ((11, 31, 31), 47), ((11, 31, 20), 47), ((341, 20), 47),
+                     ((11, 16, 16), 116), ((11, 16, 16), 230))
+
+
+def _conversion_checks(dev, rng):
+    """limb_digits and limb_planes against digits_dev_plain and
+    planes_to_limb_plain, bit for bit, at CONVERSION_SHAPES: limb values
+    below 1 over 40 binades with zeros among them, and carry-normalized
+    balanced planes.  Bound: bytes in and out at 3.35 TB/s (integer
+    shifts and masks, a few tens a digit, are not counted)."""
+    import torch
+
+    from sdpb_tpu_torch.mp import limb
+    from sdpb_tpu_torch.ops import limb_kernels as lk
+    from sdpb_tpu_torch.ops import mpmm
+
+    rows = {}
+    for idx, (batch, S) in enumerate(CONVERSION_SHAPES):
+        plan = mpmm.plan_for(limb.precision_bits(S), 64)
+        D, shift, P = plan.n_digits, plan.shift_bits, plan.out_planes
+        n = int(np.prod(batch))
+        words = (np.clip(rng.standard_normal(n), -3.9, 3.9) / 4
+                 * 2.0 ** -rng.integers(0, 40, n))
+        words[rng.random(n) < 0.05] = 0.0
+        x = torch.from_numpy(limb.from_words_np(
+            words.reshape(*batch, 1), S)).to(dev)
+        planes = torch.from_numpy(rng.integers(
+            -128, 128, (*batch, P)).astype(np.int32)).to(dev)
+        for name, kern, plain, arg, width, nbytes in (
+                ("limb_digits", lk.limb_digits, limb.digits_dev_plain,
+                 x, (shift, D), n * (S + D) * 4),
+                ("limb_planes", lk.limb_planes, limb.planes_to_limb_plain,
+                 planes, (2 * shift, S), n * (P + S) * 4)):
+            got = kern(arg, *width)
+            want, plain_ms = timed_once(lambda: plain(arg, *width))
+            if got.dtype == torch.int32:
+                same = torch.equal(got, want)
+            else:
+                same = same_bits(got, want)
+            if not same:
+                raise AssertionError(f"{name} {batch} S={S} differs from "
+                                     f"its plain version")
+            ms = cuda_ms(lambda: kern(arg, *width), 20)
+            dev_ms = device_ms(lambda: kern(arg, *width), 20)
+            print(f"{name} {batch} S={S}: bit-exact  kernel {ms:.4f} ms "
+                  f"(device {dev_ms:.4f} ms)  plain {plain_ms:.3f} ms  "
+                  f"bound %.5f ms (%s)" % bound_ms(nbytes, 0), flush=True)
+            rows.setdefault(name, []).append(dict(
+                shape=[*batch, S], err=0.0, ms=ms, device_ms=dev_ms,
+                plain_ms=plain_ms, bytes=nbytes, ops=0, main=idx == 0))
     return rows
 
 
@@ -1259,6 +1322,8 @@ PORT_KERNELS = (
     ("solve_unblocked_batched", r"\(anonymous namespace\)::solve_warp_kernel<"),
     ("limb_elementwise",
      r"\(anonymous namespace\)::elementwise_warp_kernel<"),
+    ("limb_digits", r"\(anonymous namespace\)::digits_kernel\("),
+    ("limb_planes", r"\(anonymous namespace\)::planes_warp_kernel<"),
     ("expansion_elementwise",
      r"\(anonymous namespace\)::exp_thread_kernel<"),
     ("expansion_elementwise_warp",
@@ -2771,6 +2836,8 @@ def kernel_json(rows, paths):
         "limb_add": "sdpb_tpu/mp/limb.py:499",
         "limb_mul": "sdpb_tpu/mp/limb.py:532",
         "limb_div": "sdpb_tpu/mp/limb.py:670",
+        "limb_digits": "sdpb_tpu/mp/limb.py:843",
+        "limb_planes": "sdpb_tpu/mp/limb.py:879",
         "exp_add": "sdpb_tpu/mp/core.py:422",
         "exp_add_f64": "sdpb_tpu/mp/core.py:446",
         "exp_mul": "sdpb_tpu/mp/core.py:487",
@@ -2784,6 +2851,8 @@ def kernel_json(rows, paths):
                "limb_add": "sdpb_tpu_torch/csrc/limb_elementwise.cu",
                "limb_mul": "sdpb_tpu_torch/csrc/limb_elementwise.cu",
                "limb_div": "sdpb_tpu_torch/csrc/limb_elementwise.cu",
+               "limb_digits": "sdpb_tpu_torch/csrc/limb_digits.cu",
+               "limb_planes": "sdpb_tpu_torch/csrc/limb_digits.cu",
                "exp_cholesky_panel": "sdpb_tpu_torch/csrc/expansion_chol.cu",
                "exp_solve_unblocked":
                    "sdpb_tpu_torch/csrc/expansion_solve.cu"}

@@ -651,7 +651,15 @@ def _carry8(acc, passes: int):
 
 def digits_dev(x, shift_bits: int, n_digits: int):
     """Limb array with |value| <= 1 -> balanced int32 base-256 digits
-    (..., n_digits), least significant first.  Integer-exact."""
+    (..., n_digits) of value * 2^shift_bits, least significant first.
+    Integer-exact.  CUDA tensors take the digits kernel."""
+    if x.is_cuda:
+        return _kernels().limb_digits(x, shift_bits, n_digits)
+    return digits_dev_plain(x, shift_bits, n_digits)
+
+
+def digits_dev_plain(x, shift_bits: int, n_digits: int):
+    """Plain PyTorch version of ``digits_dev`` (any device)."""
     e, limbs = _split(x)
     L = limbs.shape[-1]
     li = limbs.to(torch.int32)
@@ -675,7 +683,14 @@ def digits_dev(x, shift_bits: int, n_digits: int):
 def planes_to_limb(planes, ref_bits: int, k_slots: int):
     """Carry-normalized balanced base-256 digit planes (..., P,
     least-significant-first; |plane| < 2^13) -> limb array of
-    value * 2^-ref_bits."""
+    value * 2^-ref_bits.  CUDA tensors take the planes kernel."""
+    if planes.is_cuda:
+        return _kernels().limb_planes(planes, ref_bits, k_slots)
+    return planes_to_limb_plain(planes, ref_bits, k_slots)
+
+
+def planes_to_limb_plain(planes, ref_bits: int, k_slots: int):
+    """Plain PyTorch version of ``planes_to_limb`` (any device)."""
     P = planes.shape[-1]
     L = k_slots - 1
     top_bit = 8 * P - ref_bits

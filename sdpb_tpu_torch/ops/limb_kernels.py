@@ -5,22 +5,28 @@ build and loader.
 the two Pallas TPU kernels of the JAX package
 (``sdpb_tpu/ops/limb_kernels.py``); ``limb_add``, ``limb_mul`` and
 ``limb_div`` run one MP operation per launch where the JAX package
-leaves the elementwise limb arithmetic to XLA fusions.  The CUDA sources
+leaves the elementwise limb arithmetic to XLA fusions, and
+``limb_digits`` and ``limb_planes`` the CRT pipeline's two base
+conversions (limbs to base-256 digits and digit planes back) in one
+launch a call.  The CUDA sources
 are ``csrc/limb.cuh`` (the limb arithmetic per thread, the reference
 of the warp operations), ``csrc/limb_warp.cuh`` (the same arithmetic
 with one value per warp), ``csrc/limb_chol.cu`` and
 ``csrc/limb_solve.cu`` (the two factorization kernels, one MP operation
-per warp) and ``csrc/limb_elementwise.cu`` (add, mul and div, one value
-per warp), each kernel with a plain ``extern "C"`` launcher.  The
-kernels are built per slot class (``SLOT_CLASSES``): a class's library
-takes values of up to its capacity in slots, and a tensor of S slots
-runs on the smallest class that holds S.  Every unit is compiled once
-for each R (registers per value) of the class, all with ``nvcc`` at
-first use and all at once, and linked into one shared library per
-class (``csrc/build/``, keyed by sources, flags and class) called
-through ``ctypes``; no PyTorch header is involved.  ``chol_geometry``,
-``solve_geometry`` and ``elementwise_geometry`` choose each launch's
-warps, grid, tile width and shared memory.
+per warp), ``csrc/limb_elementwise.cu`` (add, mul and div, one value
+per warp) and ``csrc/limb_digits.cu`` (the two conversions), each
+kernel with a plain ``extern "C"`` launcher.  The kernels are built per
+slot class (``SLOT_CLASSES``): a class's library takes values of up to
+its capacity in slots, and a tensor of S slots runs on the smallest
+class that holds S.  The factorization and elementwise units are
+compiled once for each R (registers per value) of the class, the
+conversions' unit once per class, all with ``nvcc`` at first use and
+all at once, and linked into one shared library per class
+(``csrc/build/``, keyed by sources, flags and class) called through
+``ctypes``; no PyTorch header is involved.  ``chol_geometry``,
+``solve_geometry``, ``elementwise_geometry``, ``digits_geometry`` and
+``planes_geometry`` choose each launch's warps, grid, tile width and
+shared memory.
 
 Each wrapper takes the plain version for tensors on the CPU and launches
 its kernel for tensors on a CUDA device; it never falls back from one
@@ -47,9 +53,11 @@ _span = timers.span("limb_kernels")
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("limb.cuh", "limb_warp.cuh", "limb_chol.cu", "limb_solve.cu",
-           "limb_elementwise.cu")
-# Each unit is compiled once per R of the class (-DLIMB_R).
+           "limb_elementwise.cu", "limb_digits.cu")
+# Each unit is compiled once per R of the class (-DLIMB_R) ...
 PER_R_UNITS = ("limb_chol.cu", "limb_solve.cu", "limb_elementwise.cu")
+# ... but these once per class, every R they need in the one object.
+PER_CLASS_UNITS = ("limb_digits.cu",)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC"]
 
@@ -77,9 +85,17 @@ SOLVE_MAX_TILE = 4
 # The elementwise kernel (csrc/limb_elementwise.cu kElementwiseWarps):
 # four warps a block, one value per warp.
 ELEMENTWISE_WARPS = 4
+# The conversions (csrc/limb_digits.cu): a thread per digit in blocks of
+# DIGITS_THREADS, at most one wave of resident blocks (2048 threads an
+# SM) and a grid-stride loop past it; a warp per value for the planes,
+# PLANES_WARPS a block.
+DIGITS_THREADS = 256
+DIGITS_MAX_BLOCKS = SMS * 2048 // DIGITS_THREADS
+PLANES_WARPS = 4
 
 LAUNCHES = {"cholesky_unblocked_batched": 0, "solve_unblocked_batched": 0,
-            "limb_add": 0, "limb_mul": 0, "limb_div": 0}
+            "limb_add": 0, "limb_mul": 0, "limb_div": 0, "limb_digits": 0,
+            "limb_planes": 0}
 
 _LIBS: dict = {}
 
@@ -124,10 +140,17 @@ def class_regs(cap: int) -> range:
     return range(value_regs(lo), value_regs(cap) + 1)
 
 
+def planes_regs(cap: int) -> range:
+    """The R of the planes kernel in a class's library: the class's own
+    and one more, for the extended limbs above a value's top."""
+    regs = class_regs(cap)
+    return range(regs[0], regs[-1] + 2)
+
+
 def _objects(cap: int) -> list:
     """(object stem, source, extra flags) of each compilation of a
-    class: every unit for each R (the lowest R's object also carrying
-    the class's entry points)."""
+    class: every per-R unit for each R (the lowest R's object also
+    carrying the class's entry points) and each per-class unit once."""
     regs = class_regs(cap)
     out = []
     for unit in PER_R_UNITS:
@@ -135,6 +158,7 @@ def _objects(cap: int) -> list:
             extra = [f"-DLIMB_R={R}"] + (["-DLIMB_CLASS_ENTRIES"]
                                          if R == regs[0] else [])
             out.append((f"{Path(unit).stem}_r{R}", unit, extra))
+    out += [(Path(unit).stem, unit, []) for unit in PER_CLASS_UNITS]
     return out
 
 
@@ -236,6 +260,13 @@ def _load(lo: int, cap: int):
     lib.limb_solve_smem_bytes.restype = ci
     lib.limb_elementwise_smem_bytes.argtypes = [ci]
     lib.limb_elementwise_smem_bytes.restype = ci
+    lib.limb_digits_launch.argtypes = [vp, vp, cl, ci, ci, ci, ci, vp]
+    lib.limb_digits_launch.restype = ci
+    lib.limb_planes_launch.argtypes = [vp, vp, cl, ci, ci, ci, ci, ci, vp]
+    lib.limb_planes_launch.restype = ci
+    lib.limb_digits_threads.restype = ci
+    lib.limb_planes_smem_bytes.argtypes = [ci]
+    lib.limb_planes_smem_bytes.restype = ci
     if (lib.limb_min_slots(), lib.limb_max_slots()) != (lo, cap):
         raise RuntimeError(f"limb kernel library of class {cap} was built "
                            f"for {lib.limb_min_slots()}.."
@@ -253,19 +284,26 @@ def _load(lo: int, cap: int):
                 != elementwise_geometry(1, s)["smem"]):
             raise RuntimeError("limb kernel library disagrees on the "
                                "launch geometry")
+    regs = planes_regs(cap)
+    if (lib.limb_digits_threads() != DIGITS_THREADS
+            or [lib.limb_planes_smem_bytes(R) for R in regs]
+            != [4 * _scratch_floats(PLANES_WARPS, R) for R in regs]
+            or lib.limb_planes_smem_bytes(regs[-1] + 1) != 0):
+        raise RuntimeError("limb kernel library disagrees on the "
+                           "conversions' launch geometry")
     _LIBS[cap] = lib
     return lib
 
 
-def _on_cuda(name, *tensors):
-    """Check dtype and device agreement; True for CUDA tensors, False
-    for CPU ones, and raise for any other device."""
+def _on_cuda(name, *tensors, dtype=torch.float32):
+    """Check dtype (limbs: float32) and device agreement; True for CUDA
+    tensors, False for CPU ones, and raise for any other device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: tensors on different devices")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: limb tensors must be float32")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: tensors must be {dtype}")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {dev}")
     return dev.type == "cuda"
@@ -522,3 +560,85 @@ def limb_mul(a, b):
 def limb_div(a, b):
     """a / b by long division (limb format, broadcasting)."""
     return _elementwise("limb_div", a, b, limb.div_plain)
+
+
+# ---------------------------------------------------------------------------
+# Base conversions of the integer CRT pipeline
+# ---------------------------------------------------------------------------
+
+def digits_geometry(n: int, n_digits: int) -> dict:
+    """Grid of the digits kernel for n values of n_digits digits: a
+    thread per digit, at most DIGITS_MAX_BLOCKS blocks (a grid-stride
+    loop takes the rest)."""
+    return {"blocks": max(1, min(-(-n * n_digits // DIGITS_THREADS),
+                                 DIGITS_MAX_BLOCKS))}
+
+
+def planes_geometry(n: int, P: int, ref_bits: int, k_slots: int) -> dict:
+    """Registers a lane (R: 32 R slots hold planes_to_limb's extended
+    limbs and their two zero heads), grid and dynamic shared memory
+    (bytes) of the planes kernel for n values: PLANES_WARPS warps a
+    block, a warp for each value, each warp's scratch rows.  ValueError
+    where the class's library has no such R."""
+    ext = k_slots + 3 + max(0, -(-(8 * P - ref_bits) // limb.B))
+    R = -(-ext // 32)
+    if R not in planes_regs(slot_class(k_slots)[1]):
+        raise ValueError(f"limb_planes: {P} planes at 2^-{ref_bits} need "
+                         f"R = {R} for S = {k_slots}, beyond its class")
+    return {"regs": R, "blocks": max(1, -(-n // PLANES_WARPS)),
+            "smem": 4 * _scratch_floats(PLANES_WARPS, R)}
+
+
+@_span
+def limb_digits(x, shift_bits: int, n_digits: int):
+    """Limb array (..., S) with |value| <= 1 -> balanced int32 base-256
+    digits (..., n_digits) of value * 2^shift_bits, least significant
+    first (mp/limb.py digits_dev_plain's bits)."""
+    name = "limb_digits"
+    if not _on_cuda(name, x):
+        return limb.digits_dev_plain(x, shift_bits, n_digits)
+    S = x.shape[-1]
+    _check_slots(name, S)
+    if n_digits < 1:
+        raise ValueError(f"{name}: n_digits={n_digits}")
+    x = x.contiguous()
+    out = torch.empty(x.shape[:-1] + (n_digits,), dtype=torch.int32,
+                      device=x.device)
+    n = x.numel() // S
+    if n == 0:
+        return out
+    geo = digits_geometry(n, n_digits)
+    err = _lib(S).limb_digits_launch(
+        x.data_ptr(), out.data_ptr(), n, S, shift_bits, n_digits,
+        geo["blocks"], torch.cuda.current_stream(x.device).cuda_stream)
+    _status(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+@_span
+def limb_planes(planes, ref_bits: int, k_slots: int):
+    """Carry-normalized balanced base-256 digit planes (..., P), int32,
+    least significant first, |plane| < 2^13 -> limb array (..., k_slots)
+    of value * 2^-ref_bits (mp/limb.py planes_to_limb_plain's bits)."""
+    name = "limb_planes"
+    if not _on_cuda(name, planes, dtype=torch.int32):
+        return limb.planes_to_limb_plain(planes, ref_bits, k_slots)
+    _check_slots(name, k_slots)
+    P = planes.shape[-1]
+    if P < 1:
+        raise ValueError(f"{name}: no planes")
+    planes = planes.contiguous()
+    out = torch.empty(planes.shape[:-1] + (k_slots,), dtype=torch.float32,
+                      device=planes.device)
+    n = planes.numel() // P
+    if n == 0:
+        return out
+    geo = planes_geometry(n, P, ref_bits, k_slots)
+    err = _lib(k_slots).limb_planes_launch(
+        planes.data_ptr(), out.data_ptr(), n, P, ref_bits, k_slots,
+        geo["regs"], geo["blocks"],
+        torch.cuda.current_stream(planes.device).cuda_stream)
+    _status(name, err)
+    LAUNCHES[name] += 1
+    return out

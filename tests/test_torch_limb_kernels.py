@@ -251,3 +251,33 @@ def test_elementwise_operand_reads_one_value_in_place():
     assert torch.equal(x, a[:, :1].expand(3, 4, S))
     x, stride = tk.elementwise_operand(a[:, 1], (2, 3))
     assert stride == S and torch.equal(x, a[:, 1].expand(2, 3, S))
+
+
+# The CRT conversions (csrc/limb_digits.cu): every plan that
+# mpmm.plan_for makes for a slot class fits its library's planes kernel
+# (R within planes_regs, under the 48 KB a block gets without opting in),
+# and the digits kernel's grid covers every digit.
+@pytest.mark.parametrize("cap", tk.SLOT_CLASSES)
+def test_conversion_geometry_covers_every_plan_of_a_class(cap):
+    from sdpb_tpu_torch.ops import mpmm
+
+    lo = tk.slot_class(cap)[0]
+    for S in sorted({lo, lo + 1, (lo + cap) // 2, cap - 1, cap}):
+        for rows in (64, 1024, 1 << 20):
+            plan = mpmm.plan_for(tl.precision_bits(S), rows)
+            for n in (1, 4, 5, 2816, 10571):
+                geo = tk.digits_geometry(n, plan.n_digits)
+                assert 1 <= geo["blocks"] <= tk.DIGITS_MAX_BLOCKS
+                assert geo["blocks"] * tk.DIGITS_THREADS >= min(
+                    n * plan.n_digits, tk.DIGITS_MAX_BLOCKS * 256)
+            try:
+                P = plan.out_planes
+            except ValueError:   # past the prime pool (~2800 bits)
+                P = 2 * plan.n_digits + 6
+            geo = tk.planes_geometry(2816, P, 2 * plan.shift_bits, S)
+            assert geo["regs"] in tk.planes_regs(cap)
+            assert 32 * geo["regs"] >= S + 3
+            assert geo["blocks"] == 2816 // tk.PLANES_WARPS
+            assert geo["smem"] <= 48 * 1024
+    with pytest.raises(ValueError, match="beyond its class"):
+        tk.planes_geometry(1, 40 * cap, 0, cap)

@@ -1,8 +1,9 @@
 """The CUDA limb kernels' own source, run on the CPU.
 
-The kernels in sdpb_tpu_torch/csrc/limb_chol.cu, limb_solve.cu and
-limb_elementwise.cu (one MP operation per warp, limb_warp.cuh) run only
-on the card.  This test compiles their device code with the host C++
+The kernels in sdpb_tpu_torch/csrc/limb_chol.cu, limb_solve.cu,
+limb_elementwise.cu (one MP operation per warp, limb_warp.cuh) and
+limb_digits.cu (the CRT pipeline's base conversions) run only on the
+card.  This test compiles their device code with the host C++
 compiler against a small emulation of the CUDA features they use -- one
 std::thread per CUDA thread, warp shuffles, votes, reductions and
 barriers through std::barrier -- and checks, at small shapes, that:
@@ -13,7 +14,11 @@ barriers through std::barrier -- and checks, at small shapes, that:
   (NaN in the same places), in both orientations for the solve, for a
   non-positive-definite input for the Cholesky, and for zero divisors,
   NaN, +-inf, both ends of the exponent range and an operand broadcast
-  with batch stride 0 for the elementwise add, mul and div.
+  with batch stride 0 for the elementwise add, mul and div;
+- the digits and planes kernels give the same bits as digits_dev_plain
+  and planes_to_limb_plain, on their own grid and on a smaller one (the
+  grid-stride loop), and the residues of the kernel's digits are those
+  of the plain digits.
 
 The emulation checks arithmetic and indexing, not timing or memory
 ordering on the card; chip_smoke.py phase 3 holds the real kernels to
@@ -32,6 +37,7 @@ import torch
 from sdpb_tpu_torch.mp import limb
 from sdpb_tpu_torch.ops import limb_kernels as lk
 
+from torch_limb_inputs import digit_inputs, plan_sizes, plane_inputs
 from torch_port_util import one_torch_thread  # noqa: F401,E402
 
 CSRC = lk.CSRC
@@ -285,15 +291,40 @@ int emu_solve(const float* l, const float* b, const float* d, float* out,
   return 1;
 }
 
+void emu_digits(const float* x, int* out, long n, int S, int shift, int D,
+                int blocks) {
+  run_blocks(blocks, 1, kDigitsThreads, 0,
+             [=] { digits_kernel(x, out, n, S, shift, D); });
+}
+
+int emu_planes(const int* p, float* out, long n, int P, int ref, int S,
+               int R, int blocks) {
+  switch (R) {
+#define PLANES_CASE(r)                                                    \
+  case r:                                                                 \
+    run_blocks(blocks, 1, kPlanesWarps * 32, planes_smem_floats(r), [=] { \
+      planes_warp_kernel<r, kPlanesWarps>(p, out, n, P, ref, S);          \
+    });                                                                   \
+    return 0;
+    PLANES_CASE(1) PLANES_CASE(2) PLANES_CASE(3) PLANES_CASE(4)
+    PLANES_CASE(5) PLANES_CASE(6)
+  }
+  return 1;
+}
+
 }  // extern "C"
 """
+
+
+# Where each unit's host launchers (CUDA launch syntax) begin.
+LAUNCHERS = {"limb_digits.cu": "template <int R>\nint launch_planes("}
 
 
 def _device_code(name: str) -> str:
     """A kernel unit up to its launcher (host code with CUDA launch
     syntax), its dynamic shared memory taken from the emulation."""
     src = (CSRC / name).read_text()
-    cut = src.index("template <int R, int W>\nint launch(")
+    cut = src.index(LAUNCHERS.get(name, "template <int R, int W>\nint launch("))
     src = src[:cut] + "}  // namespace\n"
     src = src.replace("#include <cuda_runtime.h>", "")
     assert "extern __shared__ float sh[];" in src
@@ -310,7 +341,8 @@ def emu(tmp_path_factory):
     (d / "shim.h").write_text(SHIM)
     (d / "kernels.inc").write_text(
         "\n".join(_device_code(n) for n in ("limb_chol.cu", "limb_solve.cu",
-                                             "limb_elementwise.cu")))
+                                             "limb_elementwise.cu",
+                                             "limb_digits.cu")))
     (d / "harness.cpp").write_text(HARNESS)
     lib = d / "libemu.so"
     proc = subprocess.run(
@@ -325,6 +357,8 @@ def emu(tmp_path_factory):
     emu = ctypes.CDLL(str(lib))
     vp, cl, ci = ctypes.c_void_p, ctypes.c_long, ctypes.c_int
     emu.emu_elementwise.argtypes = [ci, vp, cl, vp, cl, vp, cl, ci, ci]
+    emu.emu_digits.argtypes = [vp, vp, cl, ci, ci, ci, ci]
+    emu.emu_planes.argtypes = [vp, vp, cl, ci, ci, ci, ci, ci]
     return emu
 
 
@@ -488,3 +522,79 @@ def test_elementwise_kernel_on_its_own_grid(emu, n):
             assert emu.emu_elementwise(op, _ptr(x), S, _ptr(y), S,
                                        _ptr(out), n, S, blocks) == 0
             assert _same(out, plain(x, y)), (op, i)
+
+
+# ---------------------------------------------------------------------------
+# The CRT pipeline's base conversions (csrc/limb_digits.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [4, 26, 47, 116])
+def test_digits_kernel_matches_plain(emu, S):
+    """The digits kernel against digits_dev_plain on 64 values (enough
+    digits that the third carry pass moves some), on the grid
+    digits_geometry gives it and on one block (the grid-stride loop), at
+    the plan's digits and at fewer."""
+    n_digits, shift, _ = plan_sizes(S)
+    n = 64
+    x = digit_inputs(np.random.default_rng(300 + S), n, S, n_digits)
+    for D in (n_digits, 5):
+        want = limb.digits_dev_plain(x, shift, D)
+        for blocks in (lk.digits_geometry(n, D)["blocks"], 1):
+            got = torch.empty(n, D, dtype=torch.int32)
+            emu.emu_digits(_ptr(x), _ptr(got), n, S, shift, D, blocks)
+            assert torch.equal(got, want), (D, blocks)
+
+
+@pytest.mark.parametrize("S", [4, 26, 47, 116])
+def test_planes_kernel_matches_plain(emu, S):
+    """The planes kernel against planes_to_limb_plain on 9 rows of the
+    plan's planes, on its own grid (3 blocks of 4 warps) and on 2 blocks,
+    and on a single row."""
+    _, shift, P = plan_sizes(S)
+    planes = plane_inputs(np.random.default_rng(400 + S), 9, P)
+    geo = lk.planes_geometry(9, P, 2 * shift, S)
+    assert geo["blocks"] == 3
+    for rows, blocks in ((9, 3), (9, 2), (1, 1)):
+        want = limb.planes_to_limb_plain(planes[:rows], 2 * shift, S)
+        got = torch.empty(rows, S)
+        assert emu.emu_planes(_ptr(planes), _ptr(got), rows, P, 2 * shift,
+                              S, geo["regs"], blocks) == 0
+        assert _same(got, want), (rows, blocks)
+        assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("S", [26, 47, 116])
+def test_kernel_digits_give_todays_residues(emu, S):
+    """digits_dev's kernel followed by residues_split gives the residues
+    that today's path (digits_dev on a CPU tensor) gives."""
+    from sdpb_tpu_torch.ops import exact, mpmm
+
+    plan = mpmm.plan_for(limb.precision_bits(S), 64)
+    x = digit_inputs(np.random.default_rng(500 + S), 7, S, plan.n_digits)
+    got = torch.empty(7, plan.n_digits, dtype=torch.int32)
+    emu.emu_digits(_ptr(x), _ptr(got), 7, S, plan.shift_bits,
+                   plan.n_digits, 1)
+    want = mpmm.digits_dev(x, plan)
+    for a, b in zip(exact.residues_split(got, plan),
+                    exact.residues_split(want, plan)):
+        assert torch.equal(a, b)
+
+
+def test_conversions_on_cpu_take_the_plain_versions():
+    """CPU tensors go to digits_dev_plain and planes_to_limb_plain
+    through both the mp/limb.py entries and the kernel wrappers, and
+    launch nothing."""
+    S = 47
+    n_digits, shift, P = plan_sizes(S)
+    rng = np.random.default_rng(600)
+    x = digit_inputs(rng, 8, S, n_digits).reshape(2, 4, S)
+    planes = plane_inputs(rng, 8, P).reshape(2, 4, P)
+    lk.reset_launches()
+    want = limb.digits_dev_plain(x, shift, n_digits)
+    assert torch.equal(limb.digits_dev(x, shift, n_digits), want)
+    assert torch.equal(lk.limb_digits(x, shift, n_digits), want)
+    want = limb.planes_to_limb_plain(planes, 2 * shift, S)
+    assert _same(limb.planes_to_limb(planes, 2 * shift, S), want)
+    assert _same(lk.limb_planes(planes, 2 * shift, S), want)
+    assert want.shape == (2, 4, S)
+    assert sum(lk.LAUNCHES.values()) == 0
