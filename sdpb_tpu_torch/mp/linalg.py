@@ -35,6 +35,15 @@ from ..utils import timers
 
 _span = timers.span("linalg")
 
+
+def _panel(routine: str):
+    """One panel step of a blocked route: a span of layer ``panels``
+    named ``<routine>.panel``, and a count of ``("panels", routine)``.
+    Only the routes that block (more than 2 * _PANEL rows) open it."""
+    timers.count("panels", routine)
+    return timers.scope("panels", f"{routine}.panel")
+
+
 # Contraction chunk of the plain limb matmul: bounds its product tensor.
 _MATMUL_CHUNK = 128
 
@@ -234,19 +243,21 @@ def _cholesky_limb_batched(a):
     didx = torch.arange(nb, device=a.device)
     bad = torch.zeros(BB, dtype=torch.bool, device=a.device)
     for pi in range(npanels):
-        j, e = pi * nb, (pi + 1) * nb
-        l11 = lk.cholesky_unblocked_batched(mat[:, j:e, j:e].contiguous())
-        mat[:, j:e, j:e] = l11
-        if e < N:
-            inv_d = core.recip(l11[:, didx, didx, :])
-            l21 = lk.solve_unblocked_batched(
-                l11, mat[:, e:, j:e].transpose(1, 2).contiguous(),
-                inv_d).transpose(1, 2)
-            mat[:, e:, j:e] = l21
-            bad |= _nonfinite(l21)
-            upd = _product(l21, l21.transpose(1, 2), True, syrk=True)
-            mat[:, e:, e:] = core.add(mat[:, e:, e:], core.neg(upd))
-        mat[:, j:, j:e] = _zero_adds(mat[:, j:, j:e], npanels - pi)
+        with _panel("cholesky"):
+            j, e = pi * nb, (pi + 1) * nb
+            l11 = lk.cholesky_unblocked_batched(
+                mat[:, j:e, j:e].contiguous())
+            mat[:, j:e, j:e] = l11
+            if e < N:
+                inv_d = core.recip(l11[:, didx, didx, :])
+                l21 = lk.solve_unblocked_batched(
+                    l11, mat[:, e:, j:e].transpose(1, 2).contiguous(),
+                    inv_d).transpose(1, 2)
+                mat[:, e:, j:e] = l21
+                bad |= _nonfinite(l21)
+                upd = _product(l21, l21.transpose(1, 2), True, syrk=True)
+                mat[:, e:, e:] = core.add(mat[:, e:, e:], core.neg(upd))
+            mat[:, j:, j:e] = _zero_adds(mat[:, j:, j:e], npanels - pi)
     rows = torch.arange(N, device=a.device)
     lower = (rows[:, None] >= rows[None, :])[:, :, None]
     out = torch.where(lower, _poison(mat, bad), 0.0)
@@ -290,24 +301,26 @@ def _solve_limb_batched(l, b, transpose: bool):
     crt = _int_backend_ok((BB, N, nb, k), m)
     bad = torch.zeros(BB, dtype=torch.bool, device=l.device)
     bad_cols = torch.zeros((BB, m), dtype=torch.bool, device=l.device)
+    routine = "solve_t" if transpose else "solve"
     for t in range(npanels):
-        pi = npanels - 1 - t if transpose else t
-        j, e = pi * nb, (pi + 1) * nb
-        xp = lk.solve_unblocked_batched(
-            l[:, j:e, j:e].contiguous(), x[:, j:e].contiguous(),
-            inv_d[:, j:e].contiguous(), transpose=transpose)
-        # the pending rows: above the panel (L^-T) or below it (L^-1)
-        rows = slice(0, j) if transpose else slice(e, N)
-        lpart = l[:, j:e, rows].transpose(1, 2) if transpose \
-            else l[:, rows, j:e]
-        if crt:
-            bad |= _nonfinite(xp) | _nonfinite(lpart)
-        else:
-            bad_cols |= ~torch.isfinite(xp[..., 0]).all(dim=1)
-        if lpart.shape[1]:
-            x[:, rows] = core.add(x[:, rows],
-                                  core.neg(_product(lpart, xp, crt)))
-        x[:, j:e] = _zero_adds(xp, npanels - t)
+        with _panel(routine):
+            pi = npanels - 1 - t if transpose else t
+            j, e = pi * nb, (pi + 1) * nb
+            xp = lk.solve_unblocked_batched(
+                l[:, j:e, j:e].contiguous(), x[:, j:e].contiguous(),
+                inv_d[:, j:e].contiguous(), transpose=transpose)
+            # the pending rows: above the panel (L^-T) or below it (L^-1)
+            rows = slice(0, j) if transpose else slice(e, N)
+            lpart = l[:, j:e, rows].transpose(1, 2) if transpose \
+                else l[:, rows, j:e]
+            if crt:
+                bad |= _nonfinite(xp) | _nonfinite(lpart)
+            else:
+                bad_cols |= ~torch.isfinite(xp[..., 0]).all(dim=1)
+            if lpart.shape[1]:
+                x[:, rows] = core.add(x[:, rows],
+                                      core.neg(_product(lpart, xp, crt)))
+            x[:, j:e] = _zero_adds(xp, npanels - t)
     x = _poison(x, bad, bad_cols)
     return x[:, :n] if npad else x
 
@@ -362,14 +375,15 @@ def _cholesky_exp_batched(a):
     mat = _pad_identity(a, npad) if npad else a.clone()
     N = n + npad
     for pi in range(N // nb):
-        j = pi * nb
-        C = ek.exp_cholesky_panel(mat[:, j:, j:j + nb])
-        mat[:, j:, j:j + nb] = C
-        P = torch.zeros_like(mat[:, :, :nb])
-        P[:, j + nb:] = C[:, nb:]
-        upd = _product(P, P.transpose(1, 2),
-                       _int_backend_ok(P.shape[1:], N), syrk=True)
-        mat = core.add(mat, core.neg(upd))
+        with _panel("cholesky"):
+            j = pi * nb
+            C = ek.exp_cholesky_panel(mat[:, j:, j:j + nb])
+            mat[:, j:, j:j + nb] = C
+            P = torch.zeros_like(mat[:, :, :nb])
+            P[:, j + nb:] = C[:, nb:]
+            upd = _product(P, P.transpose(1, 2),
+                           _int_backend_ok(P.shape[1:], N), syrk=True)
+            mat = core.add(mat, core.neg(upd))
     out = torch.where(_lower_mask(N, a.device), mat, 0.0)
     return out[:, :n, :n] if npad else out
 
@@ -395,20 +409,22 @@ def _solve_exp_batched(l, b, transpose: bool):
     inv_d = core.recip(l[:, didx, didx, :])
     rows = torch.arange(N, device=l.device)
     x = b.clone()
+    routine = "solve_t" if transpose else "solve"
     for t in range(npanels):
-        pi = npanels - 1 - t if transpose else t
-        j, e = pi * nb, (pi + 1) * nb
-        xp = ek.exp_solve_unblocked(l[:, j:e, j:e], x[:, j:e],
-                                    inv_d[:, j:e], transpose)
-        x[:, j:e] = xp
-        if transpose:
-            lpart = torch.where((rows < j)[None, :, None], l[:, j:e],
-                                0.0).transpose(1, 2)
-        else:
-            lpart = torch.where((rows >= e)[:, None, None], l[:, :, j:e],
-                                0.0)
-        upd = _product(lpart, xp, _int_backend_ok(lpart.shape[1:], m))
-        x = core.add(x, core.neg(upd))
+        with _panel(routine):
+            pi = npanels - 1 - t if transpose else t
+            j, e = pi * nb, (pi + 1) * nb
+            xp = ek.exp_solve_unblocked(l[:, j:e, j:e], x[:, j:e],
+                                        inv_d[:, j:e], transpose)
+            x[:, j:e] = xp
+            if transpose:
+                lpart = torch.where((rows < j)[None, :, None], l[:, j:e],
+                                    0.0).transpose(1, 2)
+            else:
+                lpart = torch.where((rows >= e)[:, None, None],
+                                    l[:, :, j:e], 0.0)
+            upd = _product(lpart, xp, _int_backend_ok(lpart.shape[1:], m))
+            x = core.add(x, core.neg(upd))
     return x[:, :n] if npad else x
 
 
@@ -459,13 +475,15 @@ def _lower_inverse_batched(l):
     eye = _eye(nb, k, dev, l.dtype).expand(BB * nblk, nb, nb, k).contiguous()
     tii = _unblocked_inverse(dflat, eye, inv_d).reshape(BB, nblk, nb, nb, k)
     T = torch.zeros((BB, N, N, k), dtype=l.dtype, device=dev)
+    # block row i needs the block rows above it whole
     for i in range(nblk):
-        T[:, i * nb:(i + 1) * nb, i * nb:(i + 1) * nb] = tii[:, i]
-    for i in range(1, nblk):
-        rowL = l[:, i * nb:(i + 1) * nb, :i * nb]
-        prod = matmul(rowL, T[:, :i * nb, :i * nb])
-        T[:, i * nb:(i + 1) * nb, :i * nb] = core.neg(matmul(tii[:, i],
-                                                             prod))
+        with _panel("inverse"):
+            T[:, i * nb:(i + 1) * nb, i * nb:(i + 1) * nb] = tii[:, i]
+            if i:
+                rowL = l[:, i * nb:(i + 1) * nb, :i * nb]
+                prod = matmul(rowL, T[:, :i * nb, :i * nb])
+                T[:, i * nb:(i + 1) * nb, :i * nb] = core.neg(
+                    matmul(tii[:, i], prod))
     return T[:, :n, :n] if npad else T
 
 

@@ -11,11 +11,12 @@ Host-side equivalent of the reference's tracing/profiling subsystem
 
 Layer spans are the second record kind: ``span`` (a decorator) and
 ``scope`` (a block) mark the layer boundaries of the solve (``phases``,
-``linalg``, ``glue``, ``limb_kernels``, ``expansion_kernels``,
+``linalg``, ``panels``: a panel step of a blocked factorization or
+substitution, ``glue``, ``limb_kernels``, ``expansion_kernels``,
 ``build``), and ``count`` counts events by kind and site (``syncs``:
-the host waiting on a device value; ``builds`` and ``loads`` of kernel
-libraries).  They are off by default; off, a site costs one module
-global read and a direct call.  On, a span appends
+the host waiting on a device value; ``panels`` by routine; ``builds``
+and ``loads`` of kernel libraries).  They are off by default; off, a
+site costs one module global read and a direct call.  On, a span appends
 [layer, name, start_ns, stop_ns, parent] to an in-memory list (parent:
 the index of the innermost span open at its start, -1 for none), and
 ``take`` hands the records and counts over.  ``layer_spans`` switches

@@ -9,6 +9,7 @@ import pathlib
 import re
 import time
 
+import numpy as np
 import pytest
 import torch
 
@@ -16,6 +17,7 @@ from portbench import problem as pb
 from portbench import run as harness
 from sdpb_tpu_torch.apps import sdpb as app
 from sdpb_tpu_torch.mp import limb
+from sdpb_tpu_torch.mp import linalg as la
 from sdpb_tpu_torch.ops import limb_kernels as lk
 from sdpb_tpu_torch.ops import mpmm
 from sdpb_tpu_torch.solver import driver
@@ -113,6 +115,59 @@ def test_entry_points_appear_under_their_layer(traced, layer, names):
         seen.setdefault(name, set()).add(lay)
     for name in names:
         assert seen.get(name) == {layer}, (name, seen.get(name))
+
+
+def _blocked_routes(fmt: str, n: int, batch: int, m: int):
+    """The factor, L^-1 B, L^-T B and L^-1 of seeded SPD matrices
+    (batch, n, n) and right-hand sides (batch, n, m) in the format."""
+    rng = np.random.default_rng(n)
+    g = rng.standard_normal((batch, n, n))
+    a = torch.from_numpy(g @ g.transpose(0, 2, 1) + n * np.eye(n))
+    b = torch.from_numpy(rng.standard_normal((batch, n, m)))
+    if fmt == "limbs":
+        a, b = limb.from_float(a, 6), limb.from_float(b, 6)
+    else:                           # K = 4 float64 words
+        a, b = (torch.nn.functional.pad(t[..., None], (0, 3))
+                for t in (a, b))
+    l = la.cholesky(a)
+    return [l, la.solve_lower(l, b), la.solve_lower_t(l, b),
+            la.lower_inverse(l)]
+
+
+@pytest.mark.parametrize("fmt", ["limbs", "expansions"])
+@pytest.mark.parametrize("n, batch, m, panels", [
+    (70, 1, 2, 3),          # above 2 x 32 rows: 96 padded, 3 panels
+    (31, 2, 20, 0),         # the nmax6 SDP's Schur blocks and L^-1 B
+    (20, 1, 1, 0),          # its Q
+])
+def test_panel_spans_only_where_the_routes_block(fmt, n, batch, m, panels,
+                                                 one_torch_thread):  # noqa: F811
+    tr.take()
+    plain = _blocked_routes(fmt, n, batch, m)
+    assert tr.take() == ([], {})
+    old = tr.layer_spans(True)
+    try:
+        spanned = _blocked_routes(fmt, n, batch, m)
+    finally:
+        tr.layer_spans(old)
+    records, counts = tr.take()
+    bits = torch.int32 if fmt == "limbs" else torch.int64
+    for got, want in zip(spanned, plain):
+        assert torch.equal(got.view(bits), want.view(bits))
+    routines = ("cholesky", "solve", "solve_t", "inverse")
+    assert {site: v for (kind, site), v in counts.items()
+            if kind == "panels"} == (
+        dict.fromkeys(routines, panels) if panels else {})
+    steps = [(name, records[parent][1]) for layer, name, _, _, parent
+             in records if layer == "panels"]
+    assert steps == [(f"{r}.panel", outer) for r, outer in zip(
+        routines, ("cholesky", "solve_lower", "solve_lower_t",
+                   "lower_inverse")) for _ in range(panels)]
+
+
+def test_the_tiny_solve_opens_no_panel(traced):
+    assert not any(layer == "panels" for layer, *_ in traced[2])
+    assert not any(kind == "panels" for kind, _ in traced[3])
 
 
 def test_apply_step_and_conditions_are_separate_phases(traced):
